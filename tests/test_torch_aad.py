@@ -1,0 +1,152 @@
+"""AAD modulate: the port's plain version and AADLayer against ghost_tpu,
+and (on a card) the CUDA kernel against the plain version.
+
+The JAX kernel runs as its own tests run it on the CPU: Pallas interpret
+mode (`ghost_tpu/ops/pallas/aad.py:88-89`). Bounds: f32 1e-5 (the same
+math, sums in another order); bf16 0.1 absolute, the JAX kernel test's
+bound (tests/test_pallas_kernels.py:200-210): outputs are O(1-10), so
+one bf16 ulp after a different rounding of the stats is up to ~0.06.
+
+The JAX twins are imported inside the tests that use them, so the card
+test runs where jax is not installed:
+    python -m pytest --noconftest -m gpu tests/test_torch_aad.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ghost_tpu_torch.convert.from_jax import load_flax_variables
+from ghost_tpu_torch.core.precision import FULL_PRECISION
+from ghost_tpu_torch.models.aei import AADLayer
+from ghost_tpu_torch.nn.layers import to_nchw, to_nhwc
+from ghost_tpu_torch.ops.cuda.aad import aad_modulate, aad_modulate_plain
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _inputs(rng, b, h, w, c):
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return (f(b, h, w, c) * 2 + 1, f(b, h, w, c), f(b, h, w, c), f(b, 2 * c),
+            f(1, 1, c, 1) * 0.3, f(1))
+
+
+# (2,8,16,8): the JAX test's shape; (1,48,32,8): rows the block does not
+# divide; (3,2,2,40): blk1-like 2x2 maps with C not a multiple of 32
+@pytest.mark.parametrize("shape", [(2, 8, 16, 8), (1, 48, 32, 8),
+                                   (3, 2, 2, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax(rng, shape, dtype):
+    import jax.numpy as jnp
+
+    from ghost_tpu.ops.pallas.aad import aad_modulate as j_aad_modulate
+    from ghost_tpu.ops.pallas.aad import aad_modulate_reference
+
+    h, ga, bb, idgb, mk, mb = _inputs(rng, *shape)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = getattr(torch, dtype)
+    j_in = [jnp.asarray(a).astype(jd) for a in (h, ga, bb, idgb)]
+    ref_kernel = j_aad_modulate(*j_in, jnp.asarray(mk), jnp.asarray(mb),
+                                block_rows=32)
+    ref_plain = aad_modulate_reference(*j_in, jnp.asarray(mk), jnp.asarray(mb))
+    t_in = [torch.from_numpy(a).to(td) for a in (h, ga, bb, idgb)]
+    before = aad_modulate.launches
+    out = aad_modulate(*t_in, torch.from_numpy(mk), torch.from_numpy(mb))
+    assert out.dtype == td and tuple(out.shape) == shape
+    tol = 0.1 if dtype == "bfloat16" else 1e-5
+    for ref in (ref_kernel, ref_plain):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   rtol=tol, atol=tol)
+    assert aad_modulate.launches == before  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("attr_upsample", [1, 2])
+def test_aad_layer_matches_jax(rng, fused, attr_upsample):
+    import jax
+    import jax.numpy as jnp
+
+    from ghost_tpu.core.precision import FULL_PRECISION as JFULL
+    from ghost_tpu.models.aei import AADLayer as JAADLayer
+
+    b, hw, c, ca = 2, 8, 16, 12
+    ha = hw // attr_upsample
+    h = rng.standard_normal((b, hw, hw, c)).astype(np.float32)
+    za = rng.standard_normal((b, ha, ha, ca)).astype(np.float32)
+    zid = rng.standard_normal((b, 512)).astype(np.float32)
+    jmod = JAADLayer(c, JFULL, attr_upsample, fused)
+    variables = jmod.init(jax.random.key(0), jnp.asarray(h), jnp.asarray(za),
+                          jnp.asarray(zid))
+    variables = jax.tree.map(
+        lambda a: a + jnp.asarray(rng.normal(0, 0.1, a.shape), a.dtype),
+        variables)
+    ref = jmod.apply(variables, jnp.asarray(h), jnp.asarray(za),
+                     jnp.asarray(zid))
+    tmod = load_flax_variables(
+        AADLayer(c, ca, 512, FULL_PRECISION, attr_upsample), variables)
+    with torch.no_grad():
+        out = to_nhwc(tmod(to_nchw(torch.from_numpy(h)),
+                           to_nchw(torch.from_numpy(za)),
+                           torch.from_numpy(zid)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_kernel_rejects_what_it_does_not_take():
+    """Layout and dtype checks run before any launch (meta tensors reach
+    them without a card)."""
+    from ghost_tpu_torch.ops.cuda.aad import _check
+
+    h = torch.empty((2, 4, 4, 8), device="meta")
+    packed = torch.empty((2, 4, 4, 16), device="meta")
+    ga, bb = packed[..., :8], packed[..., 8:]
+    idgb = torch.empty((2, 16), device="meta")
+    mk = torch.empty((1, 8, 1, 1), device="meta")
+    mb = torch.empty((1,), device="meta")
+    assert _check(h, ga, bb, idgb, mk, mb) == (16, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        _check(h.permute(0, 2, 1, 3), ga, bb, idgb, mk, mb)
+    with pytest.raises(ValueError, match="unit channel stride"):
+        _check(h, ga.permute(0, 2, 1, 3), bb, idgb, mk, mb)
+    with pytest.raises(TypeError):
+        _check(h, ga.to(torch.bfloat16), bb, idgb, mk, mb)
+    with pytest.raises(ValueError, match="mask_kernel"):
+        _check(h, ga, bb, idgb, mk[:, :4], mb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from ghost_tpu_torch.core.precision import disable_tf32
+
+    disable_tf32()
+    rng = np.random.default_rng(0)
+    td = getattr(torch, dtype)
+    for shape in [(2, 8, 16, 8), (1, 48, 32, 8), (3, 2, 2, 40),
+                  (2, 64, 64, 64), (1, 16, 16, 1024)]:
+        h, ga, bb, idgb, mk, mb = _inputs(rng, *shape)
+        c = shape[-1]
+        packed = np.concatenate([ga, bb], axis=-1)
+        dev = [torch.from_numpy(a).cuda() for a in (h, packed, idgb, mk, mb)]
+        h_d, p_d, id_d, mk_d, mb_d = dev
+        p_d = p_d.to(td)
+        args = (h_d.to(td), p_d[..., :c], p_d[..., c:], id_d.to(td), mk_d,
+                mb_d)
+        before = aad_modulate.launches
+        out = aad_modulate(*args)
+        torch.cuda.synchronize()
+        assert aad_modulate.launches == before + 1
+        ref = aad_modulate_plain(*args)
+        err = (out.float() - ref.float()).abs()
+        bound = (0.1 if dtype == "bfloat16" else 1e-4) \
+            + ref.float().abs() * (2 ** -6 if dtype == "bfloat16" else 1e-5)
+        assert bool((err <= bound).all()), (shape, float(err.max()))
