@@ -8,7 +8,8 @@ Phases, each on an explicit device; any failure raises and the script
 exits non-zero without its result lines:
 
   1. device   card name, count, power limit, torch/CUDA versions, TF32 off
-  2. build    nvcc builds the AAD modulate kernel (K1) for sm_90a
+  2. build    nvcc builds K1, K2 and K3 for sm_90a, one process per
+              source, all at once
   3. K1       kernel vs its plain PyTorch version at the 8 AAD shapes of
               the full-width generator at B=8, bf16 and f32: error bound
               and CUDA-event times (turns plain, kernel, kernel, plain)
@@ -17,6 +18,24 @@ exits non-zero without its result lines:
   5. main     `_detect_swap` at full width (SCRFD 640, iresnet100, AEI-Net
               unet 2 blocks, bf16) on a chunk of 8 seeded 1080p frames:
               output shape, 21 K1 launches per call, a real blend, frames/s
+  6. K2       flash attention forward, dq and dk/dv vs their plain
+              versions at (8,8,1024|4096,64) bf16 causal and not,
+              (1,1,2560,64) causal f32 with q tiles of 48 against k tiles
+              of 64, (2,2,640,128) f32; times beside SDPA, aten's flash
+              backward and the bounds
+  7. K3       fused LayerNorm forward and backward vs plain at 8192x1024,
+              1000x768 and 37x8192, bf16 and f32; times, each call on
+              one of 8 input sets so it reads HBM, beside F.layer_norm /
+              its aten backward and the bytes bounds
+  8. train    the slice's path at full width: MultiheadAttention (8 heads
+              x 64, causal, norm_add) + MLP (2048, 512), bf16 compute, on
+              seeded x (8,4096,512), cross-entropy, 3 ghost_adam steps:
+              finite losses, one K2 fwd, dq and dk/dv launch per step
+  9. K3 path  fused_layer_norm fwd+bwd through autograd at 8192x1024
+ 10. parity   the tiny f32 block, 3 steps on the CPU and on the card
+
+Each path (5, 8, 9) runs with every launch count set to 0 just before
+it and read just after; the counts go into the kernels line.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -25,6 +44,7 @@ The last two lines are the kernels JSON and
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -36,8 +56,58 @@ AAD_BLOCKS = [(2 ** (k + 1), c, 2 if k < 3 else 3)
               for k, c in enumerate((1024, 1024, 1024, 1024, 512, 256, 128, 64))]
 AAD_B = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same sheet
+F32_FLOPS = 67e12          # f32 outside the tensor cores, same sheet
+# K2 kernel-vs-plain cases: (B, H, S, D, dtype, causal, block_q, timed);
+# S=2560 causal in f32 with q tiles of 48 against k tiles of 64
+K2_CASES = [(8, 8, 1024, 64, "bfloat16", False, 64, True),
+            (8, 8, 1024, 64, "bfloat16", True, 64, True),
+            (8, 8, 4096, 64, "bfloat16", False, 64, True),
+            (8, 8, 4096, 64, "bfloat16", True, 64, True),
+            (1, 1, 2560, 64, "float32", True, 48, False),
+            (2, 2, 640, 128, "float32", False, 64, False)]
+# K3 cases: (rows, h, dtype, timed)
+# input sets the timed K3 cases rotate through (each call reads HBM)
+K3_SETS = 8
+K3_CASES = [(8192, 1024, "bfloat16", True), (8192, 1024, "float32", True),
+            (1000, 768, "bfloat16", False), (1000, 768, "float32", False),
+            (37, 8192, "bfloat16", False), (37, 8192, "float32", False)]
+# the training slice at full width, and cut down for CPU-vs-card parity
+TRAIN = dict(batch=8, seq=4096, heads=8, head_dim=64, hidden=2048, steps=3,
+             lr=4e-4)
+TRAIN_PARITY = dict(batch=2, seq=128, heads=2, head_dim=16, hidden=64)
 PARITY_CFG = dict(det_size=320, chunk_size=2, max_faces=4, match_faces=2,
                   similarity_th=-2.0)
+
+
+# each kernel: its source and the TPU kernel it replaces
+KERNELS = {
+    "aad_modulate": ("ghost_tpu_torch/csrc/aad_modulate.cu",
+                     "ghost_tpu/ops/pallas/aad.py:77"),
+    "flash_attention_fwd": ("ghost_tpu_torch/csrc/flash_attention.cu",
+                            "ghost_tpu/ops/pallas/attention.py:85"),
+    "flash_attention_bwd_dq": ("ghost_tpu_torch/csrc/flash_attention.cu",
+                               "ghost_tpu/ops/pallas/attention.py:202"),
+    "flash_attention_bwd_dkv": ("ghost_tpu_torch/csrc/flash_attention.cu",
+                                "ghost_tpu/ops/pallas/attention.py:247"),
+    "fused_layer_norm_fwd": ("ghost_tpu_torch/csrc/layer_norm.cu",
+                             "ghost_tpu/ops/pallas/layer_norm.py:30"),
+    "fused_layer_norm_bwd": ("ghost_tpu_torch/csrc/layer_norm.cu",
+                             "ghost_tpu/ops/pallas/layer_norm.py:42"),
+}
+
+
+# the one PyTorch call that computes each kernel's function (timed only)
+LIBRARY = {
+    "aad_modulate": None,
+    "flash_attention_fwd": "torch.nn.functional.scaled_dot_product_attention",
+    "flash_attention_bwd_dq": None,
+    "flash_attention_bwd_dkv":
+        "aten._scaled_dot_product_flash_attention_backward: dq, dk and dv "
+        "together, the yardstick of the dq + dk/dv pair",
+    "fused_layer_norm_fwd": "torch.nn.functional.layer_norm",
+    "fused_layer_norm_bwd": "aten.native_layer_norm_backward",
+}
 
 
 def log(msg=""):
@@ -72,16 +142,21 @@ def phase_build():
     from ghost_tpu_torch.ops.cuda import _build
 
     t0 = time.perf_counter()
-    _build.load_library("aad_modulate")
-    report = _build.BUILD_REPORTS.get("aad_modulate")
-    if report is None:
-        log(f"build: aad_modulate loaded from {_build.BUILD_DIR} (built "
-            f"earlier) in {time.perf_counter() - t0:.2f} s")
-        return
-    log(f"build: nvcc {' '.join(report['cmd'][1:])}")
-    log(f"build: aad_modulate in {report['seconds']:.2f} s")
-    for line in report["ptxas"].splitlines():
-        log(f"  ptxas: {line}")
+    _build.build()
+    for name in _build.SOURCES:
+        report = _build.BUILD_REPORTS.get(name)
+        if report is None:
+            log(f"build: {name} loaded from {_build.BUILD_DIR} (built earlier)")
+            continue
+        log(f"build: {name} in {report['seconds']:.2f} s: nvcc "
+            f"{' '.join(report['cmd'][1:])}")
+        # each kernel's name, registers and shared memory, and any spills
+        for line in report["ptxas"].splitlines():
+            nonzero_spill = "spill" in line and " 0 bytes spill" not in line
+            if "entry function" in line or "Used" in line or nonzero_spill:
+                log(f"  ptxas: {line.strip()[:150]}")
+    log(f"build: {len(_build.SOURCES)} sources, one nvcc each in parallel, "
+        f"in {time.perf_counter() - t0:.2f} s")
 
 
 def _time_turns(fns, iters, device):
@@ -110,7 +185,7 @@ def phase_k1(device, card):
 
     g = torch.Generator(device=device).manual_seed(0)
     max_err = 0.0
-    weighted = {"kernel": 0.0, "plain": 0.0}
+    weighted = {"kernel": 0.0, "plain": 0.0, "bound": 0.0}
     log(f"K1 aad_modulate vs plain, B={AAD_B} ({card}):")
     log("  dtype    shape              layers  err      bound-ok  plain_us  "
         "kernel_us  bytes_bound_us")
@@ -142,7 +217,11 @@ def phase_k1(device, card):
             plain_ms, kern_ms = _time_turns(
                 (lambda: aad_modulate_plain(*args), lambda: aad_modulate(*args)),
                 20, device)
-            nbytes = 6 * h.numel() * h.element_size()
+            # the function's least traffic: h, gamma_attr and beta_attr
+            # read once, the output written once, plus the id and mask
+            # vectors
+            nbytes = (4 * h.numel() * h.element_size()
+                      + sum(a.numel() * a.element_size() for a in args[3:]))
             name = str(dtype).replace("torch.", "")
             shape = f"({AAD_B},{hw},{hw},{c})"
             log(f"  {name:8s} {shape:18s} {layers:6d}  {e:.3e}  {ok!s:8s}  "
@@ -151,14 +230,16 @@ def phase_k1(device, card):
             if dtype == torch.bfloat16:
                 weighted["kernel"] += layers * kern_ms
                 weighted["plain"] += layers * plain_ms
+                weighted["bound"] += layers * nbytes / HBM_BYTES_PER_S * 1e3
             if not ok:
                 raise AssertionError(f"K1 disagrees with plain at {name} "
                                      f"({AAD_B},{hw},{hw},{c}): max err {e}")
     log(f"K1 per 8-frame generator pass (21 layers, bf16): kernel "
-        f"{weighted['kernel']:.3f} ms, plain {weighted['plain']:.3f} ms "
-        f"({card})")
+        f"{weighted['kernel']:.3f} ms, plain {weighted['plain']:.3f} ms, "
+        f"bytes bound {weighted['bound']:.3f} ms ({card})")
     return dict(max_abs_err=max_err, ms=weighted["kernel"],
-                plain_ms=weighted["plain"])
+                plain_ms=weighted["plain"], bound_ms=weighted["bound"],
+                bound_by="bytes", library_ms=None, library_call=None)
 
 
 def phase_parity(device):
@@ -173,7 +254,7 @@ def phase_parity(device):
 
     cpu = build_random_pipeline(SwapConfig(**PARITY_CFG),
                                 policy=FULL_PRECISION, gen_width=1 / 8,
-                                inject_templates=True, seed=0)
+                                inject_templates=True, seed=0, device="cpu")
     card = SwapPipeline(*[copy.deepcopy(m).to(device) for m in
                           (cpu.det_mod, cpu.arc_mod, cpu.gen_mod,
                            cpu.lmk_mod)], config=cpu.cfg)
@@ -237,7 +318,7 @@ def phase_main(device, card, iters=5, profile=False):
         f"in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats(device)
-    aad_modulate.launches = 0
+    zero_counts()
     times = []
     for i in range(iters + 1):
         before = aad_modulate.launches
@@ -354,6 +435,459 @@ def phase_stages(pipe, frames, tgt, src, mp, device):
                                         rot_subpix=cfg.blend_rot_subpix))
 
 
+# ---------------------------------------------------------------------------
+# Launch counts: every kernel wrapper's counter
+# ---------------------------------------------------------------------------
+
+
+def _wrappers():
+    from ghost_tpu_torch.ops.cuda import attention, layer_norm
+    from ghost_tpu_torch.ops.cuda.aad import aad_modulate
+
+    return {"aad_modulate": aad_modulate,
+            "flash_attention_fwd": attention.flash_attention_fwd,
+            "flash_attention_bwd_dq": attention.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": attention.flash_attention_bwd_dkv,
+            "fused_layer_norm_fwd": layer_norm.fused_layer_norm_fwd,
+            "fused_layer_norm_bwd": layer_norm.fused_layer_norm_bwd}
+
+
+def zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+# ---------------------------------------------------------------------------
+# K2 flash attention and K3 fused LayerNorm against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _close(name, got, ref, dtype, worst):
+    """Hold got to ref: one bf16 ulp (2^-7 |ref|) plus 1e-3 max|ref| for
+    bf16 tensors (both sides round one f32 result), 1e-4 |ref| plus
+    1e-4 max|ref| for f32 ones (the same f32 math, sums in another
+    order). Records the max abs error under `name` in `worst`."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    scale = float(ref.abs().max())
+    if dtype == torch.bfloat16:
+        bound = 2 ** -7 * ref.abs() + 1e-3 * scale
+    else:
+        bound = 1e-4 * ref.abs() + 1e-4 * scale
+    e = float(err.max())
+    worst[name] = max(worst.get(name, 0.0), e)
+    if not (bool(torch.isfinite(got).all()) and bool((err <= bound).all())):
+        raise AssertionError(f"{name}: max err {e} (max |ref| {scale})")
+    return e
+
+
+def _time_one(fn, iters, device):
+    """Per-call ms of one fn (the library yardstick), CUDA events."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / iters
+
+
+def _rotating(fn, sets):
+    """A no-argument call of fn on the next of `sets` each time."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def _bound(nbytes, flops, peak_flops):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the peak for the inputs' type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k2(device, card):
+    """K2 forward, dq and dk/dv against their plain versions, and times
+    at the training block's shapes beside SDPA and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from ghost_tpu_torch.ops.cuda import attention as A
+
+    worst, main = {}, {}
+    log(f"K2 flash attention vs plain ({card}):")
+    for b, h, s, d, dt, causal, bq, timed in K2_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=device).manual_seed(s + d)
+        q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=device)
+                       .to(dtype) for _ in range(4))
+        scale = 1 / d ** 0.5
+        out, lse, delta, dq, dk, dv = A._flash_attention_tiles(q, k, v, do,
+                                                               causal, bq)
+        ref, ref_lse = A.flash_attention_fwd_plain(q, k, v, causal)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize(device)
+        want_dq = A.flash_attention_bwd_dq_plain(*args)
+        want_dk, want_dv = A.flash_attention_bwd_dkv_plain(*args)
+        tag = f"({b},{h},{s},{d}) {dt} causal={causal} block_q={bq}"
+        errs = [_close("flash_attention_fwd", out, ref, dtype, worst),
+                _close("flash_attention_fwd", lse, ref_lse, torch.float32,
+                       worst),
+                _close("flash_attention_bwd_dq", dq, want_dq, dtype, worst),
+                _close("flash_attention_bwd_dkv", dk, want_dk, dtype, worst),
+                _close("flash_attention_bwd_dkv", dv, want_dv, dtype, worst)]
+        log(f"  {tag}: max err out {errs[0]:.2e} lse {errs[1]:.2e} dq "
+            f"{errs[2]:.2e} dk {errs[3]:.2e} dv {errs[4]:.2e} (within bound)")
+        del ref, ref_lse, want_dq, want_dk, want_dv
+        if not timed:
+            continue
+        iters = 3 if s <= 1024 else 2
+        pairs = s * (s + 1) // 2 if causal else s * s
+        mm = 2 * b * h * pairs * d  # one (S x S x D) product's flops
+        row = b * h * s * d * q.element_size()
+        stats = b * h * s * 4
+        # aten's flash-attention backward computes dq, dk and dv together
+        # from its forward's saved LSE: the one library call for the pair,
+        # reported on the dk/dv row
+        lib_fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, causal, False, scale=scale)
+        lib_o, lib_lse, cq, ck, mq, mk, seed, offset = lib_fwd[:8]
+
+        def lib_bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, lib_o, lib_lse, cq, ck, mq, mk, 0.0, causal, seed,
+                offset, scale=scale)
+
+        lib_dq = lib_bwd()[0]
+        log(f"  {tag} aten flash backward: max |dq - kernel dq| "
+            f"{float((lib_dq.float() - dq.float()).abs().max()):.2e}")
+        del lib_dq
+        rows = {
+            "flash_attention_fwd": (
+                lambda: A.flash_attention_fwd_plain(q, k, v, causal),
+                lambda: A.flash_attention_fwd(q, k, v, causal),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal),
+                _bound(4 * row + stats, 2 * mm, BF16_FLOPS)),
+            "flash_attention_bwd_dq": (
+                lambda: A.flash_attention_bwd_dq_plain(*args),
+                lambda: A.flash_attention_bwd_dq(*args), None,
+                _bound(5 * row + 2 * stats, 3 * mm, BF16_FLOPS)),
+            "flash_attention_bwd_dkv": (
+                lambda: A.flash_attention_bwd_dkv_plain(*args),
+                lambda: A.flash_attention_bwd_dkv(*args), lib_bwd,
+                _bound(6 * row + 2 * stats, 4 * mm, BF16_FLOPS)),
+        }
+        with torch.no_grad():
+            for name, (plain, kern, lib, (bound, by)) in rows.items():
+                plain_ms, kern_ms = _time_turns((plain, kern), iters, device)
+                lib_ms = None if lib is None else _time_one(lib, iters, device)
+                lib_txt = ("none" if lib_ms is None
+                           else f"{lib_ms:.3f} ms ({LIBRARY[name]})")
+                log(f"  {tag} {name}: kernel {kern_ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, library {lib_txt}, bound "
+                    f"{bound:.3f} ms ({by})")
+                if (s, causal) == (TRAIN["seq"], True):
+                    main[name] = dict(ms=kern_ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bound,
+                                      bound_by=by, library_call=LIBRARY[name])
+
+        def plain_all():
+            o, l_ = A.flash_attention_fwd_plain(q, k, v, causal)
+            a = (q, k, v, do, l_, A.attention_delta(o, do), causal, scale)
+            A.flash_attention_bwd_dq_plain(*a)
+            A.flash_attention_bwd_dkv_plain(*a)
+
+        def kern_all():
+            o, l_ = A.flash_attention_fwd(q, k, v, causal)
+            a = (q, k, v, do, l_, A.attention_delta(o, do), causal, scale)
+            A.flash_attention_bwd_dq(*a)
+            A.flash_attention_bwd_dkv(*a)
+
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def sdpa_all():
+            F.scaled_dot_product_attention(qg, kg, vg,
+                                           is_causal=causal).backward(do)
+
+        with torch.no_grad():
+            plain_ms, kern_ms = _time_turns((plain_all, kern_all), iters,
+                                            device)
+        lib_ms = _time_one(sdpa_all, iters, device)
+        bound, by = _bound(10 * row + 2 * stats, 7 * mm, BF16_FLOPS)
+        log(f"  {tag} fwd+bwd: kernels {kern_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, SDPA fwd+bwd {lib_ms:.3f} ms, bound "
+            f"{bound:.3f} ms ({by}; 2 + 5 products)")
+        del qg, kg, vg, lib_fwd, lib_o, lib_lse
+        torch.cuda.empty_cache()
+    for name in main:
+        main[name]["max_abs_err"] = worst[name]
+    return main
+
+
+def phase_k3(device, card):
+    """K3 forward and backward against their plain versions, and times
+    at 8192 x 1024 beside F.layer_norm and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from ghost_tpu_torch.ops.cuda import layer_norm as L
+
+    worst, main = {}, {}
+    log(f"K3 fused LayerNorm vs plain ({card}):")
+    for rows, h, dt, timed in K3_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=device).manual_seed(rows + h)
+        x = (torch.randn(rows, h, generator=g, device=device) * 2 + 1).to(dtype)
+        dy = torch.randn(rows, h, generator=g, device=device).to(dtype)
+        gamma = torch.randn(h, generator=g, device=device)
+        beta = torch.randn(h, generator=g, device=device)
+        y, mean, rstd = L.fused_layer_norm_fwd(x, gamma, beta)
+        dx, dg, db = L.fused_layer_norm_bwd(x, gamma, mean, rstd, dy)
+        torch.cuda.synchronize(device)
+        ref = L.layer_norm_fwd_plain(x, gamma, beta)
+        want = L.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
+        errs = [_close("fused_layer_norm_fwd", y, ref[0], dtype, worst),
+                _close("fused_layer_norm_fwd", mean, ref[1], torch.float32,
+                       worst),
+                _close("fused_layer_norm_fwd", rstd, ref[2], torch.float32,
+                       worst),
+                _close("fused_layer_norm_bwd", dx, want[0], dtype, worst),
+                _close("fused_layer_norm_bwd", dg, want[1], torch.float32,
+                       worst),
+                _close("fused_layer_norm_bwd", db, want[2], torch.float32,
+                       worst)]
+        tag = f"({rows},{h}) {dt}"
+        log(f"  {tag}: max err y {errs[0]:.2e} mean {errs[1]:.2e} rstd "
+            f"{errs[2]:.2e} dx {errs[3]:.2e} dgamma {errs[4]:.2e} dbeta "
+            f"{errs[5]:.2e} (within bound)")
+        if not timed:
+            continue
+        gl, bl = gamma.to(dtype), beta.to(dtype)
+        # K3_SETS input sets, each call on the next, so that every call
+        # reads its inputs from HBM: all of them (>= 268 MB) overflow the
+        # 50 MB L2, where one set (17-34 MB) would stay between calls
+        sets = []
+        for _ in range(K3_SETS):
+            xs = (torch.randn(rows, h, generator=g, device=device) * 2
+                  + 1).to(dtype)
+            dys = torch.randn(rows, h, generator=g, device=device).to(dtype)
+            _, ms, rs = L.fused_layer_norm_fwd(xs, gamma, beta)
+            _, ml, rl = torch.ops.aten.native_layer_norm(xs, [h], gl, bl, 1e-5)
+            sets.append((xs, dys, ms, rs, ml, rl))
+        xb = rows * h * x.element_size()
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        fns = {
+            "fused_layer_norm_fwd": (
+                lambda xs, dys, ms, rs, ml, rl: L.layer_norm_fwd_plain(
+                    xs, gamma, beta),
+                lambda xs, dys, ms, rs, ml, rl: L.fused_layer_norm_fwd(
+                    xs, gamma, beta),
+                lambda xs, dys, ms, rs, ml, rl: F.layer_norm(xs, (h,), gl, bl),
+                _bound(2 * xb + 2 * h * 4 + 2 * rows * 4, 8 * rows * h, peak)),
+            "fused_layer_norm_bwd": (
+                lambda xs, dys, ms, rs, ml, rl: L.layer_norm_bwd_plain(
+                    xs, gamma, ms, rs, dys),
+                lambda xs, dys, ms, rs, ml, rl: L.fused_layer_norm_bwd(
+                    xs, gamma, ms, rs, dys),
+                lambda xs, dys, ms, rs, ml, rl:
+                    torch.ops.aten.native_layer_norm_backward(
+                        dys, xs, [h], ml, rl, gl, bl, [True, True, True]),
+                _bound(3 * xb + 3 * h * 4 + 2 * rows * 4, 12 * rows * h,
+                       peak)),
+        }
+        for name, (plain, kern, lib, (bound, by)) in fns.items():
+            plain_ms, kern_ms = _time_turns(
+                (_rotating(plain, sets), _rotating(kern, sets)), 20, device)
+            lib_ms = _time_one(_rotating(lib, sets), 20, device)
+            log(f"  {tag} {name}: kernel {kern_ms * 1e3:.1f} us, plain "
+                f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, "
+                f"bound {bound * 1e3:.1f} us ({by})")
+            if dtype == torch.bfloat16:
+                main[name] = dict(ms=kern_ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, bound_ms=bound,
+                                  bound_by=by, library_call=LIBRARY[name])
+    for name in main:
+        main[name]["max_abs_err"] = worst[name]
+    return main
+
+
+def phase_k3_path(device):
+    """K3's own op, fused_layer_norm, forward and backward through
+    autograd at 8192 x 1024 bf16, every count zeroed just before."""
+    import torch
+
+    from ghost_tpu_torch.ops.cuda.layer_norm import fused_layer_norm
+
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(8192, 1024, generator=g, device=device).to(torch.bfloat16)
+    x.requires_grad_()
+    gamma = torch.ones(1024, device=device, requires_grad=True)
+    beta = torch.zeros(1024, device=device, requires_grad=True)
+    zero_counts()
+    y = fused_layer_norm(x, gamma, beta)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize(device)
+    counts = read_counts()
+    ok = all(bool(torch.isfinite(t).all())
+             for t in (y, x.grad, gamma.grad, beta.grad))
+    log(f"K3 path: fused_layer_norm fwd+bwd (8192,1024) bf16: launches fwd "
+        f"{counts['fused_layer_norm_fwd']} bwd "
+        f"{counts['fused_layer_norm_bwd']}, finite {ok}")
+    if not ok or (counts["fused_layer_norm_fwd"],
+                  counts["fused_layer_norm_bwd"]) != (1, 1):
+        raise AssertionError(f"K3 path: {counts}, finite {ok}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The training slice: norm-add causal attention + MLP, 3 ghost_adam steps
+# ---------------------------------------------------------------------------
+
+
+def _block(d, heads, head_dim, hidden, policy, seed):
+    """MultiheadAttention (causal, norm_add) then MLP((hidden, d)), with
+    a seeded flax-style init on the CPU."""
+    import torch
+
+    from ghost_tpu_torch.nn.layers import init_weights
+    from ghost_tpu_torch.nn.modules import MLP, MultiheadAttention
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.attn = MultiheadAttention(d, heads, head_dim, causal=True,
+                                           norm_add=True, policy=policy)
+            self.mlp = MLP(d, (hidden, d), policy=policy)
+
+        def forward(self, x):
+            return self.mlp(self.attn(x))
+
+    return init_weights(Block(), torch.Generator().manual_seed(seed))
+
+
+def _train(block, x, labels, steps, lr, on_step=None):
+    """`steps` ghost_adam steps on the mean cross-entropy; the losses."""
+    import torch
+
+    from ghost_tpu_torch.nn.modules import softmax_cross_entropy
+    from ghost_tpu_torch.train.optimizers import ghost_adam
+
+    opt = ghost_adam(block.parameters(), lr=lr)
+    losses = []
+    for i in range(steps):
+        opt.zero_grad()
+        logits = block(x)
+        loss = torch.mean(softmax_cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), labels))
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        if on_step is not None:
+            on_step(i)
+    return losses
+
+
+def phase_train(device, card):
+    """The slice's path at full width: 3 training steps of the block,
+    one K2 forward, dq and dk/dv launch each per step."""
+    import torch
+
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY
+
+    t = TRAIN
+    d = t["heads"] * t["head_dim"]
+    block = _block(d, t["heads"], t["head_dim"], t["hidden"],
+                   DEFAULT_POLICY, seed=0).to(device)
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(t["batch"], t["seq"], d, generator=g, device=device)
+    labels = torch.randint(0, d, (t["batch"] * t["seq"],), generator=g,
+                           device=device)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    stamps = [time.perf_counter()]
+    per_step = []
+    k2 = ("flash_attention_fwd", "flash_attention_bwd_dq",
+          "flash_attention_bwd_dkv")
+
+    def on_step(i):
+        torch.cuda.synchronize(device)
+        stamps.append(time.perf_counter())
+        c = read_counts()
+        per_step.append(tuple(c[n] for n in k2))
+
+    zero_counts()
+    losses = _train(block, x, labels, t["steps"], t["lr"], on_step)
+    counts = read_counts()
+    steps_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"train: MHA(8x64, causal, norm_add) + MLP(2048, 512), bf16 compute, "
+        f"x (8,4096,512), ghost_adam lr 4e-4: losses "
+        f"{', '.join(f'{v:.6f}' for v in losses)}; step ms "
+        f"{', '.join(f'{v:.1f}' for v in steps_ms)}; peak "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; launches {counts} "
+        f"({card})")
+    want = [(i + 1,) * 3 for i in range(t["steps"])]
+    if per_step != want:
+        raise AssertionError(f"K2 launches after each step {per_step}, "
+                             f"want {want}")
+    if not all(abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return counts
+
+
+def phase_train_parity(device):
+    """The tiny f32 block (tests/test_torch_modules.py): 3 steps on the
+    CPU (plain core) and on the card (K2) from the same weights."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+
+    s = TRAIN_PARITY
+    d = s["heads"] * s["head_dim"]
+    cpu = _block(d, s["heads"], s["head_dim"], s["hidden"], FULL_PRECISION,
+                 seed=1)
+    card = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(
+        (s["batch"], s["seq"], d)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, d, (s["batch"] * s["seq"],)))
+    res = {}
+    for name, blk, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
+        zero_counts()
+        losses = _train(blk, x.to(dev), labels.to(dev), 3, 4e-4)
+        res[name] = (losses, read_counts()["flash_attention_fwd"],
+                     {k: p.detach().cpu() for k, p in blk.named_parameters()})
+    loss_d = max(abs(a - b) for a, b in zip(res["cpu"][0], res["card"][0]))
+    # the key bias's gradient is zero in exact arithmetic (it shifts each
+    # score row by a constant): Adam steps it on rounding noise, so it is
+    # held to 3 steps of 2 lr; every other tensor to 1e-4
+    worst = 0.0
+    for k, p in res["cpu"][2].items():
+        err = float((p - res["card"][2][k]).abs().max())
+        if err > (6 * 4e-4 if k == "attn.k_proj.bias" else 1e-4):
+            raise AssertionError(f"train parity: {k} differs by {err}")
+        if k != "attn.k_proj.bias":
+            worst = max(worst, err)
+    log(f"train parity cpu vs card (f32, B2 S128 2x16, MLP (64, 32)): losses "
+        f"{res['cpu'][0]} vs {res['card'][0]} (max diff {loss_d:.2e} <= "
+        f"1e-4), params max diff {worst:.2e} (<= 1e-4), K2 fwd launches cpu "
+        f"{res['cpu'][1]} card {res['card'][1]}")
+    if loss_d > 1e-4 or res["cpu"][1] != 0 or res["card"][1] != 3:
+        raise AssertionError("train parity failed")
+
+
 def main(argv):
     import torch
 
@@ -367,16 +901,29 @@ def main(argv):
     t0 = time.perf_counter()
     card = phase_device(device)
     phase_build()
-    k1 = phase_k1(device, card)
+    stats = {"aad_modulate": phase_k1(device, card)}
     phase_parity(device)
-    launches = phase_main(device, card, profile="--profile" in argv)
+    launches = {"aad_modulate": phase_main(device, card,
+                                           profile="--profile" in argv)}
+    stats.update(phase_k2(device, card))
+    stats.update(phase_k3(device, card))
+    train = phase_train(device, card)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        launches[name] = train[name]
+    launches.update({k: v for k, v in phase_k3_path(device).items()
+                     if k.startswith("fused_layer_norm")})
+    phase_train_parity(device)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [{
-        "name": "aad_modulate", "route": "cuda",
-        "source": "ghost_tpu_torch/csrc/aad_modulate.cu",
-        "replaces": "ghost_tpu/ops/pallas/aad.py:77",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]}))
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        st = stats[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "library_ms", "library_call")}})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,10 @@ levels that `ghost_tpu/nn/layers.py` adds (`Conv_0`, `Dense_0`,
   BatchNorm       scale/bias -> weight/bias; batch_stats mean/var ->
                   running_mean/running_var
   PReLU           alpha -> alpha
+  MultiheadAttention  ln_scale/ln_bias at the module's own level (its
+                  projections are Dense layers)
+  WeightNormDense v (in,out) -> v as it is; g, bias
+  MLP             dense{i} are Dense layers
 
 The bridge is strict: every port tensor is filled exactly once and
 every flax leaf is used exactly once, or it raises.
@@ -28,6 +32,7 @@ from torch import nn
 
 from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, Dense,
                                        PReLU)
+from ghost_tpu_torch.nn.modules import MultiheadAttention, WeightNormDense
 
 _WRAPPERS = frozenset({"Conv_0", "Dense_0", "BatchNorm_0"})
 
@@ -43,6 +48,11 @@ _LEAF_MAP = {
     (BatchNorm, "mean"): ("running_mean", None),
     (BatchNorm, "var"): ("running_var", None),
     (PReLU, "alpha"): ("alpha", None),
+    (MultiheadAttention, "ln_scale"): ("ln_scale", None),
+    (MultiheadAttention, "ln_bias"): ("ln_bias", None),
+    (WeightNormDense, "v"): ("v", None),
+    (WeightNormDense, "g"): ("g", None),
+    (WeightNormDense, "bias"): ("bias", None),
 }
 
 

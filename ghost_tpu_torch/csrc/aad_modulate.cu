@@ -26,34 +26,11 @@
 // (B, H, W, 2C) conv output. gamma_id|beta_id arrive packed (B, 2C).
 // Forward only. Launches on the caller's stream; allocates nothing.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "num.cuh"
+
 namespace {
-
-template <typename T>
-struct Num;
-
-template <>
-struct Num<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-};
-
-template <>
-struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  // one bf16 arithmetic result: the f32 value rounded to nearest even
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
-};
 
 constexpr int kStatsWarps = 32;   // warps of a stats block, striding rows
 constexpr int kModWarps = 8;      // warps of a modulate block

@@ -185,14 +185,13 @@ def instance_norm(x, eps: float = 1e-5):
     return xc * torch.rsqrt(var + eps).to(x.dtype)
 
 
-LAYER_TYPES = (Conv, ConvTranspose, Dense, BatchNorm, PReLU)
-
-
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Flax-style random init of every layer, in module order."""
+    """Flax-style random init of every layer, in module order: each of the
+    port's modules with a `reset_parameters(generator)` draws its own."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, LAYER_TYPES):
+            if (type(m).__module__.startswith("ghost_tpu_torch.")
+                    and hasattr(m, "reset_parameters")):
                 m.reset_parameters(generator)
     return model
 

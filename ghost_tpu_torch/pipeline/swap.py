@@ -387,13 +387,20 @@ def build_random_pipeline(config: SwapConfig = SwapConfig(),
                           backbone: str = "unet", seed: int = 0,
                           gen_width: float = 1.0,
                           inject_templates: bool = False,
-                          device=None) -> SwapPipeline:
+                          device="cuda") -> SwapPipeline:
     """Random-weight pipeline (flax-style init from a seeded
     torch.Generator on the CPU, then moved to `device`).
+
+    device: the card by default; a CPU run asks for `device="cpu"`.
+    Without a card the default raises rather than running on the CPU.
 
     inject_templates: pin the detector head and landmark head to face
     layouts (utils/face_template.py) so detections, masks and the blend
     are non-trivial on random weights."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_random_pipeline: no CUDA card; pass "
+                           "device='cpu' to build on the CPU")
     gen = torch.Generator().manual_seed(seed)
     det = SCRFD(policy=policy)
     arc = IResNet(layers=arcface_layers, policy=policy)

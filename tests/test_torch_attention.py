@@ -1,0 +1,218 @@
+"""Flash attention: the port's plain versions and autograd Function
+against ghost_tpu's, and (on a card) the three CUDA kernels against the
+plain versions.
+
+The JAX kernel runs as its own tests run it on the CPU: Pallas interpret
+mode with 128/128 blocks (tests/test_pallas_kernels.py:89-118). Bounds:
+f32 1e-4 absolute and relative: both sides compute in f32 from the same
+inputs and differ only in the order of the sums (O(1) values, S <= 640
+terms); bf16 outputs within one bf16 ulp of the JAX reference (both
+round an f32 result once). On the card the kernels sum in yet another
+order (tiles of 64): f32 2e-4, bf16 outputs two ulps plus 2e-3.
+
+The JAX twins are imported inside the tests that use them, so the card
+tests run where jax is not installed:
+    python -m pytest --noconftest -m gpu tests/test_torch_attention.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ghost_tpu_torch.ops.cuda.attention import (
+    _check, _flash_attention_tiles, flash_attention, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq_plain,
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
+    flash_attention_plain, attention_delta)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _qkv(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * scale).astype(np.float32)
+            for _ in range(3)]
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each value's magnitude (8 significant bits)."""
+    mag = np.maximum(np.abs(x), 1e-30)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq,heads,dim", [(256, 2, 64), (128, 1, 128)])
+def test_forward_matches_jax(causal, seq, heads, dim):
+    import jax.numpy as jnp
+
+    from ghost_tpu.ops.pallas.attention import flash_attention as j_flash
+    from ghost_tpu.ops.pallas.attention import flash_attention_reference
+
+    q, k, v = _qkv(seq + dim, (1, heads, seq, dim))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref_kernel = np.asarray(j_flash(jq, jk, jv, causal, None, 128, 128, True))
+    ref = np.asarray(flash_attention_reference(jq, jk, jv, causal))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    before = flash_attention_fwd.launches
+    out = flash_attention(tq, tk, tv, causal).numpy()
+    for got in (out, flash_attention_plain(tq, tk, tv, causal).numpy()):
+        np.testing.assert_allclose(got, ref, **TOL)
+        np.testing.assert_allclose(got, ref_kernel, **TOL)
+    assert flash_attention_fwd.launches == before  # CPU tensors never launch
+
+
+def test_odd_seq_640_matches_jax_reference():
+    import jax.numpy as jnp
+
+    from ghost_tpu.ops.pallas.attention import flash_attention_reference
+
+    q, k, v = _qkv(640, (1, 1, 640, 64))
+    ref = flash_attention_reference(*(jnp.asarray(a) for a in (q, k, v)))
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_bf16_within_one_ulp_of_jax():
+    import jax.numpy as jnp
+
+    from ghost_tpu.ops.pallas.attention import flash_attention_reference
+
+    q, k, v = _qkv(16, (1, 2, 256, 64))
+    ref = flash_attention_reference(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)), True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = flash_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                            for a in (q, k, v)), True)
+    assert out.dtype == torch.bfloat16
+    diff = np.abs(out.float().numpy() - ref)
+    assert (diff <= _bf16_ulp(ref)).all(), float(diff.max())
+
+
+@pytest.mark.parametrize("causal,shape", [(False, (1, 1, 128, 64)),
+                                          (True, (1, 2, 256, 64))])
+def test_grads_match_jax_kernel(causal, shape):
+    import jax
+    import jax.numpy as jnp
+
+    from ghost_tpu.ops.pallas.attention import flash_attention as j_flash
+
+    q, k, v = _qkv(sum(shape), shape)
+
+    def loss(q, k, v):
+        return jnp.sum(j_flash(q, k, v, causal, None, 128, 128, True) ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    torch.sum(flash_attention(tq, tk, tv, causal) ** 2).backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_plain_matches_autograd_of_plain(causal):
+    q, k, v = _qkv(3, (2, 2, 96, 16))
+    do = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention_plain(tq, tk, tv, causal)
+    out.backward(torch.from_numpy(do))
+    with torch.no_grad():
+        o, lse = flash_attention_fwd_plain(tq, tk, tv, causal)
+        got = flash_attention_bwd_plain(tq, tk, tv, o, lse,
+                                        torch.from_numpy(do), causal)
+    np.testing.assert_allclose(o.numpy(), out.detach().numpy(), **TOL)
+    for g, want in zip(got, (tq.grad, tk.grad, tv.grad)):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), **TOL)
+
+
+def test_kernels_check_what_they_take():
+    """Shape, dtype and stride checks run before any launch (meta tensors
+    reach them without a card); split heads pass with their strides."""
+    b, s, h, d = 2, 128, 4, 16
+    proj = torch.empty((b, s, h * d), device="meta")
+    qh = proj.reshape(b, s, h, d).transpose(1, 2)
+    strides = list(_check(qh, qh, qh))
+    assert strides == [s * h * d, d, h * d] * 3
+    lse = torch.empty((b, h, s, 1), device="meta")
+    with pytest.raises(ValueError, match="unit stride"):
+        _check(qh.transpose(2, 3), qh.transpose(2, 3), qh.transpose(2, 3))
+    with pytest.raises(TypeError):
+        _check(qh, qh.to(torch.bfloat16), qh)
+    with pytest.raises(ValueError, match="shape"):
+        _check(qh, qh[:, :, :64], qh[:, :, :64])
+    with pytest.raises(ValueError, match="lse"):
+        _check(qh, qh, qh, qh, lse.to(torch.bfloat16), lse)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.empty((1, 1, 128, 320), device="meta")
+        _check(big, big, big)
+    with pytest.raises(ValueError, match="block_q"):
+        _check(qh.to(torch.bfloat16), qh.to(torch.bfloat16),
+               qh.to(torch.bfloat16), block_q=48)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (shape, causal, dtype, block_q): the JAX tests' shapes, a ragged S
+# (200), head dims 16 and 256 (padded tiles, split dk/dv) and S=2560
+# causal with q tiles of 48 against k tiles of 64 (neither divides the
+# other: the causal-bound bug of tests/test_pallas_kernels.py:57-86)
+CARD_CASES = [
+    ((1, 2, 256, 64), False, "float32", 64),
+    ((1, 2, 256, 64), True, "float32", 64),
+    ((1, 1, 128, 128), True, "float32", 64),
+    ((2, 3, 200, 16), True, "float32", 64),
+    ((1, 2, 192, 256), False, "float32", 64),
+    ((1, 1, 2560, 64), True, "float32", 48),
+    ((2, 2, 640, 64), True, "bfloat16", 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal,dtype,block_q", CARD_CASES)
+def test_kernels_match_plain_on_card(shape, causal, dtype, block_q):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from ghost_tpu_torch.core.precision import disable_tf32
+
+    disable_tf32()
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(td)
+               for a in _qkv(1, shape, 0.5))
+    do = torch.from_numpy(_qkv(2, shape)[0]).cuda().to(td)
+    if block_q == 64:  # the wrappers' own tiles
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        delta = attention_delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    else:
+        out, lse, delta, dq, dk, dv = _flash_attention_tiles(q, k, v, do,
+                                                             causal, block_q)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    # each backward kernel against its plain version on the same inputs
+    args = (q, k, v, do, lse, delta, causal, 1 / shape[-1] ** 0.5)
+    want = (flash_attention_bwd_dq_plain(*args),
+            *flash_attention_bwd_dkv_plain(*args))
+    for name, got, exp in (("out", out, ref), ("lse", lse, ref_lse),
+                           ("dq", dq, want[0]), ("dk", dk, want[1]),
+                           ("dv", dv, want[2])):
+        got, exp = got.float().cpu().numpy(), exp.float().cpu().numpy()
+        if dtype == "bfloat16" and name != "lse":
+            bound = _bf16_ulp(exp) * 2 + 2e-3
+        else:
+            bound = 2e-4 + 2e-4 * np.abs(exp)
+        assert (np.abs(got - exp) <= bound).all(), \
+            (name, float(np.abs(got - exp).max()))

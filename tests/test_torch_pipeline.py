@@ -91,7 +91,7 @@ def slice_run():
 
     tp = tswap.build_random_pipeline(tswap.SwapConfig(**CFG),
                                      policy=FULL_PRECISION,
-                                     gen_width=1 / 8)
+                                     gen_width=1 / 8, device="cpu")
     for mod, v in ((tp.det_mod, dv), (tp.arc_mod, av), (tp.gen_mod, gv),
                    (tp.lmk_mod, lv)):
         load_flax_variables(mod, v)
@@ -182,8 +182,20 @@ def test_lane_skip_equals_batched_and_groups(slice_run):
     np.testing.assert_array_equal(none.numpy(), frames)
 
 
+def test_build_without_device_needs_a_card():
+    """The entry point runs on the card unless the caller asks for the
+    CPU: with no card, a call without `device` raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tswap.build_random_pipeline(tswap.SwapConfig(**CFG),
+                                    policy=FULL_PRECISION, gen_width=1 / 8)
+
+
 def test_port_imports_neither_jax_nor_ghost_tpu():
     code = ("import sys, ghost_tpu_torch.pipeline.swap\n"
+            "import ghost_tpu_torch.nn.modules, ghost_tpu_torch.train.optimizers\n"
+            "import ghost_tpu_torch.convert.from_jax\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ghost_tpu'))\n"
             "assert not bad, bad\n")
