@@ -2,13 +2,14 @@
 check it end to end.
 
     python3 chip_smoke.py            # from the repository root, one card
-    python3 chip_smoke.py --profile  # also one torch.profiler'd chunk
+    python3 chip_smoke.py --profile  # also one torch.profiler'd chunk and
+                                     # video call, and their stage times
 
 Phases, each on an explicit device; any failure raises and the script
 exits non-zero without its result lines:
 
   1. device   card name, count, power limit, torch/CUDA versions, TF32 off
-  2. build    nvcc builds K1, K2 and K3 for sm_90a, one process per
+  2. build    nvcc builds K1, K2, K3 and S2 for sm_90a, one process per
               source, all at once
   3. K1       kernel vs its plain PyTorch version at the 8 AAD shapes of
               the full-width generator at B=8, bf16 and f32: error bound
@@ -33,9 +34,25 @@ exits non-zero without its result lines:
               finite losses, one K2 fwd, dq and dk/dv launch per step
   9. K3 path  fused_layer_norm fwd+bwd through autograd at 8192x1024
  10. parity   the tiny f32 block, 3 steps on the CPU and on the card
+ 11. S2       the 3x3 conv vs its plain version at the scripts' blk8
+              (8,256,256,64) and blk7 (8,128,128,128), the SR student's
+              3->32, 32->32 and 32->12 at 16 crops of 128x128 and an odd
+              (2,37,53,5->7), bf16 and f32; times (rotating input sets
+              past the L2) beside F.conv2d (cuDNN, channels_last) and the
+              bounds
+ 12. seat     the SR student on its bundled weights
+              (assets/srvgg_student_x2_r05.msgpack), f32, CPU vs card
+ 13. video    the --use_sr video path at full width: the phase 5 models
+              with the student seat, 2 identities, 20 seeded 1080p frames
+              in chunks of 8 (the last padded): swap_video_frames
+              (smooth), swap_video_stream (smooth; equal to the frames
+              output) and swap_video_stream (fused); frames/s, peak
+              memory, S2 launches (18 per present lane per group);
+              then swap_video_frames with the LIPSPADE seat on seeded
+              weights, crop_faces and swap_image_fused once each
 
-Each path (5, 8, 9) runs with every launch count set to 0 just before
-it and read just after; the counts go into the kernels line.
+Each path (5, 8, 9, 13) runs with every launch count set to 0 just
+before it and read just after; the counts go into the kernels line.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,9 +63,11 @@ from __future__ import annotations
 import copy
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # the 8 AAD blocks of the full-width generator: (spatial size, channels)
 # and the AAD layers per block (blocks 4-8 add the shortcut's)
@@ -78,6 +97,21 @@ TRAIN = dict(batch=8, seq=4096, heads=8, head_dim=64, hidden=2048, steps=3,
 TRAIN_PARITY = dict(batch=2, seq=128, heads=2, head_dim=16, hidden=64)
 PARITY_CFG = dict(det_size=320, chunk_size=2, max_faces=4, match_faces=2,
                   similarity_th=-2.0)
+# S2 cases: (B, H, W, Cin, Cout, tag); the seat's three at 16 crops
+# (chunk 8 x 2 identities) of the 256 generator output over the x2 student
+S2_CASES = [(8, 256, 256, 64, 64, "blk8"), (8, 128, 128, 128, 128, "blk7"),
+            (16, 128, 128, 3, 32, "seat 3->32"),
+            (16, 128, 128, 32, 32, "seat 32->32"),
+            (16, 128, 128, 32, 12, "seat 32->12"),
+            (2, 37, 53, 5, 7, "odd")]
+# convs of each seat shape in one student pass (conv_0, 16 body, conv_last)
+S2_SEAT_PASS = {"seat 3->32": 1, "seat 32->32": 16, "seat 32->12": 1}
+# a timed S2 case rotates through input sets of at least this many bytes
+S2_ROTATE_BYTES = 128 * 2 ** 20
+STUDENT = Path(__file__).resolve().parent / "assets" / \
+    "srvgg_student_x2_r05.msgpack"
+# the video phase: frames of (H, W), chunk, identities
+VIDEO = dict(frames=20, hw=(1080, 1920), chunk=8, identities=2)
 
 
 # each kernel: its source and the TPU kernel it replaces
@@ -94,6 +128,9 @@ KERNELS = {
                              "ghost_tpu/ops/pallas/layer_norm.py:30"),
     "fused_layer_norm_bwd": ("ghost_tpu_torch/csrc/layer_norm.cu",
                              "ghost_tpu/ops/pallas/layer_norm.py:42"),
+    "conv3x3": ("ghost_tpu_torch/csrc/conv3x3.cu",
+                "scripts/profile_kernels_ab.py:90 and "
+                "scripts/profile_chain.py:228"),
 }
 
 
@@ -107,6 +144,8 @@ LIBRARY = {
         "together, the yardstick of the dq + dk/dv pair",
     "fused_layer_norm_fwd": "torch.nn.functional.layer_norm",
     "fused_layer_norm_bwd": "aten.native_layer_norm_backward",
+    "conv3x3": "torch.nn.functional.conv2d (cuDNN, channels_last input, "
+               "OIHW weight)",
 }
 
 
@@ -355,12 +394,19 @@ def phase_main(device, card, iters=5, profile=False):
 
 def phase_profile(pipe, frames, tgt, src, mp, device):
     """One profiled chunk: device time by kernel and the busy share."""
+    _profile(lambda: pipe._detect_swap(frames, tgt, src, mp), device)
+    phase_stages(pipe, frames, tgt, src, mp, device)
+
+
+def _profile(fn, device):
+    """Run fn once under torch.profiler: wall, device busy share and the
+    top device kernels by time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pipe._detect_swap(frames, tgt, src, mp)
+        fn()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t
     events = prof.key_averages()
@@ -375,7 +421,21 @@ def phase_profile(pipe, frames, tgt, src, mp, device):
         f"{busy / 1e3:.1f} ms ({busy / 1e6 / wall:.1%})")
     for e in sorted(kernels, key=dev_us, reverse=True)[:25]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
-    phase_stages(pipe, frames, tgt, src, mp, device)
+
+
+def _stage(name, fn, device):
+    """Host-clock ms of fn (median of 3 synced calls after a warm one)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(device)
+    ts = []
+    for _ in range(3):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        ts.append(time.perf_counter() - t)
+    log(f"  {sorted(ts)[1] * 1e3:8.2f} ms  {name}")
 
 
 def phase_stages(pipe, frames, tgt, src, mp, device):
@@ -391,15 +451,7 @@ def phase_stages(pipe, frames, tgt, src, mp, device):
                                           warp_and_blend_similarity)
 
     def stage(name, fn):
-        fn()
-        torch.cuda.synchronize(device)
-        ts = []
-        for _ in range(3):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize(device)
-            ts.append(time.perf_counter() - t)
-        log(f"  {sorted(ts)[1] * 1e3:8.2f} ms  {name}")
+        _stage(name, fn, device)
 
     cfg = pipe.cfg
     b, cs = frames.shape[0], cfg.crop_size
@@ -443,8 +495,9 @@ def phase_stages(pipe, frames, tgt, src, mp, device):
 def _wrappers():
     from ghost_tpu_torch.ops.cuda import attention, layer_norm
     from ghost_tpu_torch.ops.cuda.aad import aad_modulate
+    from ghost_tpu_torch.ops.cuda.conv3x3 import conv3x3
 
-    return {"aad_modulate": aad_modulate,
+    return {"aad_modulate": aad_modulate, "conv3x3": conv3x3,
             "flash_attention_fwd": attention.flash_attention_fwd,
             "flash_attention_bwd_dq": attention.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": attention.flash_attention_bwd_dkv,
@@ -888,6 +941,324 @@ def phase_train_parity(device):
         raise AssertionError("train parity failed")
 
 
+# ---------------------------------------------------------------------------
+# S2, the SR seats and the --use_sr video path
+# ---------------------------------------------------------------------------
+
+
+def phase_s2(device, card):
+    """S2 against its plain version at the scripts' and the seat's
+    shapes; times beside F.conv2d and the bounds. The kernels line takes
+    one student pass (18 convs at 16 crops, bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ghost_tpu_torch.ops.cuda.conv3x3 import conv3x3, conv3x3_reference
+
+    worst = 0.0
+    seat = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0}
+    log(f"S2 conv3x3 vs plain ({card}):")
+    for b, h, w, cin, cout, tag in S2_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=device).manual_seed(b * h + cin + cout)
+
+            def inputs():
+                return (torch.randn(b, h, w, cin, generator=g,
+                                    device=device).to(dtype),)
+
+            k = (torch.randn(3, 3, cin, cout, generator=g, device=device)
+                 / (9 * cin) ** 0.5).to(dtype)
+            bias = torch.randn(cout, generator=g, device=device) * 0.1
+            (x,) = inputs()
+            y = conv3x3(x, k, bias)
+            torch.cuda.synchronize(device)
+            ref = conv3x3_reference(x, k, bias).float()
+            err = (y.float() - ref).abs()
+            # the card bound of tests/test_torch_conv3x3.py: the f32 sums
+            # of 9*Cin products in another order part by ~1e-5 of the
+            # sums' scale (max |ref|), plus one bf16 rounding step
+            scale = float(ref.abs().max())
+            rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            bound = rel * ref.abs() + 1e-5 * scale
+            e = float(err.max())
+            worst = max(worst, e)
+            name = str(dtype).replace("torch.", "")
+            shape = f"({b},{h},{w},{cin}->{cout})"
+            if not (bool(torch.isfinite(y).all()) and bool((err <= bound).all())):
+                raise AssertionError(f"S2 disagrees with plain at {name} "
+                                     f"{shape}: max err {e}")
+            esize = x.element_size()
+            io = (b * h * w * (cin + cout)) * esize
+            nbytes = io + k.numel() * esize + cout * 4
+            flops = 2 * b * h * w * 9 * cin * cout
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            bound_ms, by = _bound(nbytes, flops, peak)
+            # enough input sets that every call reads its input from HBM
+            sets = [(x,)] + [inputs() for _ in range(
+                min(7, max(0, math.ceil(S2_ROTATE_BYTES / io) - 1)))]
+            iters = 5 if b * h * w * cin * cout > 2 ** 30 else 20
+            plain_ms, kern_ms = _time_turns(
+                (_rotating(lambda xs: conv3x3_reference(xs, k, bias), sets),
+                 _rotating(lambda xs: conv3x3(xs, k, bias), sets)),
+                iters, device)
+            k_oihw = k.permute(3, 2, 0, 1).contiguous()
+            b_lib = bias.to(dtype)
+            lib_sets = [(xs.permute(0, 3, 1, 2),) for (xs,) in sets]
+            lib = F.conv2d(lib_sets[0][0], k_oihw, b_lib, padding=1)
+            lib_err = float((lib.permute(0, 2, 3, 1).float() - ref).abs().max())
+            lib_ms = _time_one(_rotating(
+                lambda xs: F.conv2d(xs, k_oihw, b_lib, padding=1), lib_sets),
+                iters, device)
+            log(f"  {name:8s} {shape:22s} {tag:12s} err {e:.2e} (within "
+                f"bound); kernel {kern_ms * 1e3:9.1f} us, plain "
+                f"{plain_ms * 1e3:9.1f} us, F.conv2d {lib_ms * 1e3:8.1f} us "
+                f"(|d| vs plain {lib_err:.1e}), bound {bound_ms * 1e3:7.1f} "
+                f"us ({by}); {len(sets)} input sets")
+            if dtype == torch.bfloat16 and tag in S2_SEAT_PASS:
+                n = S2_SEAT_PASS[tag]
+                seat["ms"] += n * kern_ms
+                seat["plain_ms"] += n * plain_ms
+                seat["library_ms"] += n * lib_ms
+                seat["bound_ms"] += n * bound_ms
+                seat["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
+                seat["ops_ms"] += n * flops / BF16_FLOPS * 1e3
+            del sets, lib_sets, lib, y, ref, err, bound
+            torch.cuda.empty_cache()
+    by = "bytes" if seat["bytes_ms"] >= seat["ops_ms"] else "operations"
+    log(f"S2 per student pass (18 convs, 16 crops of 128x128, bf16): kernel "
+        f"{seat['ms']:.3f} ms, plain {seat['plain_ms']:.3f} ms, F.conv2d "
+        f"{seat['library_ms']:.3f} ms, bound {seat['bound_ms']:.3f} ms "
+        f"({by}) ({card})")
+    return dict(max_abs_err=worst, ms=seat["ms"], plain_ms=seat["plain_ms"],
+                bound_ms=seat["bound_ms"], bound_by=by,
+                library_ms=seat["library_ms"],
+                library_call=LIBRARY["conv3x3"])
+
+
+def _student(policy):
+    """The SR student seat on its bundled weights, on the CPU."""
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+    from ghost_tpu_torch.models.sr.srvgg import (SRVGGStudentSeat,
+                                                 srvgg_from_variables)
+
+    variables = load_msgpack(STUDENT)
+    student = srvgg_from_variables(variables, policy=policy)
+    return SRVGGStudentSeat(load_flax_variables(student, variables)).eval()
+
+
+def phase_seat_parity(device, card):
+    """The student seat in f32 on the CPU (plain conv) and on the card
+    (S2), same weights and inputs."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+
+    cpu = _student(FULL_PRECISION)
+    on_card = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.uniform(-1, 1, (4, 256, 256, 3)).astype(
+        np.float32))
+    res = {}
+    with torch.inference_mode():
+        for name, seat, dev in (("cpu", cpu, "cpu"),
+                                ("card", on_card, device)):
+            zero_counts()
+            out = seat(y.to(dev)).cpu()
+            res[name] = (out, read_counts()["conv3x3"])
+    err = float((res["cpu"][0] - res["card"][0]).abs().max())
+    log(f"seat parity cpu vs card (bundled student 32f/16c x2, f32, "
+        f"4x256x256): max |d| {err:.2e} (<= 1e-4), S2 launches cpu "
+        f"{res['cpu'][1]} card {res['card'][1]} ({card})")
+    if not (err <= 1e-4 and bool(torch.isfinite(res["card"][0]).all())):
+        raise AssertionError(f"seat parity: max |d| {err}")
+    if (res["cpu"][1], res["card"][1]) != (0, 18):
+        raise AssertionError("S2 launches: the CPU must take the plain "
+                             "path, the card one launch per conv (18)")
+
+
+def _seat_calls(valid, chunk, groups):
+    """SR seat calls per lane of one swap-blend call on a chunk whose
+    first `valid` frames are real (the rest padding, absent), split into
+    `groups` micro-batch groups: a group with no present frame skips
+    the lane."""
+    size = chunk // groups
+    return sum(1 for i in range(groups) if i * size < valid)
+
+
+def phase_video(device, card, profile=False):
+    """The --use_sr video path at full width with the student seat on
+    its bundled weights; the S2 launches of its first entry point."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY
+    from ghost_tpu_torch.models.sr.generator import LIPSPADEGenerator
+    from ghost_tpu_torch.nn.layers import cast_to_compute_dtype, init_weights
+    from ghost_tpu_torch.pipeline.swap import (SwapConfig, SwapPipeline,
+                                               build_random_pipeline)
+
+    v = VIDEO
+    n, chunk, t = v["frames"], v["chunk"], v["identities"]
+    cfg = SwapConfig(chunk_size=chunk, max_faces=4, match_faces=2,
+                     crop_size=224, fused_group=0, similarity_th=-2.0,
+                     use_sr=True)
+    seat = cast_to_compute_dtype(_student(DEFAULT_POLICY).to(device))
+    convs = seat.student.num_conv + 2
+    pipe = build_random_pipeline(cfg, policy=DEFAULT_POLICY,
+                                 arcface_layers=(3, 13, 30, 3), seed=0,
+                                 inject_templates=True, device=device,
+                                 sr=seat)
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (n, *v["hw"], 3), dtype=np.uint8)
+    sources = rng.integers(0, 256, (t, 224, 224, 3), dtype=np.uint8)
+    chunks = [frames[i:i + chunk] for i in range(0, n, chunk)]
+    valid = [len(c) for c in chunks]
+    g = cfg.gen_groups
+    # every lane is present in every real frame (similarity_th -2): the
+    # probe runs on chunk 0, stage B on every chunk; the fused stream
+    # runs chunk 0 split (probe + stage B), then one group per chunk
+    split = _seat_calls(valid[0], chunk, g)
+    want = {"frames": split + sum(_seat_calls(c, chunk, g) for c in valid),
+            "stream": split + sum(_seat_calls(c, chunk, g) for c in valid),
+            "stream_fused": 2 * split + len(chunks) - 1}
+    want = {k: c * t * convs for k, c in want.items()}
+
+    def run(name, fn):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        changed = float((out != frames[:len(out)]).mean())
+        log(f"video {name}: {len(out)} frames in {wall * 1e3:.1f} ms "
+            f"({len(out) / wall:.2f} frames/s); peak max_memory_allocated "
+            f"{peak / 2 ** 30:.2f} GiB; S2 launches {counts['conv3x3']} "
+            f"({counts['conv3x3'] / len(chunks):.1f} per chunk), K1 "
+            f"{counts['aad_modulate']}; {changed:.2%} of values changed "
+            f"({card})")
+        if out.shape != frames[:len(out)].shape or out.dtype != np.uint8:
+            raise AssertionError(f"video {name}: output {out.shape} "
+                                 f"{out.dtype}")
+        if not changed > 0:
+            raise AssertionError(f"video {name}: the blend changed no pixel")
+        return out, counts
+
+    def stream(smooth):
+        return np.concatenate(list(pipe.swap_video_stream(
+            iter(chunks), sources, sources, smooth=smooth)), 0)
+
+    t0 = time.perf_counter()
+    warm = pipe.swap_video_frames(frames, sources, sources, smooth=True)
+    log(f"video: warm-up swap_video_frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out_frames, counts = run("swap_video_frames(smooth=True)", lambda:
+                             pipe.swap_video_frames(frames, sources, sources,
+                                                    smooth=True))
+    launches = counts["conv3x3"]
+    out_stream, c_stream = run("swap_video_stream(smooth=True)",
+                               lambda: stream(True))
+    out_fused, c_fused = run("swap_video_stream(smooth=False)",
+                             lambda: stream(False))
+    got = {"frames": launches, "stream": c_stream["conv3x3"],
+           "stream_fused": c_fused["conv3x3"]}
+    if got != want:
+        raise AssertionError(f"S2 launches {got}, want {want} ({convs} per "
+                             "present lane per group call)")
+    if not (np.array_equal(out_frames, warm)
+            and np.array_equal(out_stream, out_frames)):
+        raise AssertionError("swap_video_stream(smooth=True) or a second "
+                             "swap_video_frames differs from the first "
+                             "swap_video_frames")
+    log("video: swap_video_stream(smooth=True) equals swap_video_frames "
+        "bit for bit, as does a second swap_video_frames")
+
+    lip = LIPSPADEGenerator(policy=DEFAULT_POLICY)
+    init_weights(lip, torch.Generator().manual_seed(1))
+    lip = cast_to_compute_dtype(lip.to(device).eval())
+    pipe_l = SwapPipeline(pipe.det_mod, pipe.arc_mod, pipe.gen_mod,
+                          pipe.lmk_mod, cfg, sr=lip)
+    run("swap_video_frames(smooth=True), LIPSPADE seat (ngf 48, seeded)",
+        lambda: pipe_l.swap_video_frames(frames[:chunk], sources, sources,
+                                         smooth=True))
+    t0 = time.perf_counter()
+    crops, scores = pipe.crop_faces(frames[0])
+    image = pipe.swap_image_fused(frames[0], sources, sources)
+    torch.cuda.synchronize(device)
+    changed = float((image != frames[0]).mean())
+    log(f"video: crop_faces -> {crops.shape} {crops.dtype} (scores "
+        f"{[round(float(x), 3) for x in scores]}); swap_image_fused -> "
+        f"{image.shape}, "
+        f"{changed:.2%} changed; both in {time.perf_counter() - t0:.2f} s")
+    if (crops.ndim != 4 or crops.shape[0] < 1 or crops.shape[1:] != (224, 224, 3)
+            or image.shape != frames[0].shape or not changed > 0):
+        raise AssertionError("crop_faces / swap_image_fused")
+    if profile:
+        phase_video_profile(pipe, frames, sources, out_frames, device)
+    return launches
+
+
+def phase_video_profile(pipe, frames, sources, out, device):
+    """One profiled swap_video_frames call, then the host-clock time of
+    its stages on one chunk."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.pipeline.smoothing import smooth_tracks
+
+    cfg = pipe.cfg
+    chunk, t = cfg.chunk_size, len(sources)
+    log(f"video profile: one swap_video_frames(smooth=True), "
+        f"{len(frames)} frames")
+    _profile(lambda: pipe.swap_video_frames(frames, sources, sources,
+                                            smooth=True), device)
+    fr = frames[:chunk]
+    src = pipe.embed_sources(sources)
+    tgt = pipe.embed_targets(sources)
+    kps, sim, _, _ = pipe._detect_match(fr, tgt)
+    kps = kps.cpu().numpy()
+    present = np.ones(sim.shape, bool)
+    mp = np.asarray([cfg.mask_params] * t, np.float32)
+    lane = chunk // cfg.gen_groups
+    g = torch.Generator(device=device).manual_seed(0)
+    y = torch.rand(lane, cfg.gen_size, cfg.gen_size, 3, generator=g,
+                   device=device) * 2 - 1
+    gen_in = y.to(torch.bfloat16)
+    z = src[:1].expand(lane, -1)
+    out_dev = torch.as_tensor(out[:chunk], device=device)
+    kps_all = np.repeat(kps, len(frames) // chunk + 1, 0)[:len(frames)]
+    log(f"video stages (chunk {chunk}, {fr.shape[1]}x{fr.shape[2]}, bf16, "
+        f"T={t}, gen_groups "
+        f"{cfg.gen_groups}; host clock, median of 3):")
+    with torch.inference_mode():
+        _stage("embed sources + targets", lambda: (
+            pipe.embed_sources(sources), pipe.embed_targets(sources)), device)
+        _stage("upload one chunk (numpy -> card)",
+               lambda: torch.as_tensor(fr).to(device), device)
+        _stage("stage A: _detect_match (upload included)",
+               lambda: pipe._detect_match(fr, tgt), device)
+        _stage("stage B: _swap_blend, probe", lambda: pipe._swap_blend(
+            fr, kps, present, src, mp, probe=True), device)
+        _stage("stage B: _swap_blend", lambda: pipe._swap_blend(
+            fr, kps, present, src, mp), device)
+        _stage(f"  AEI-Net, one lane of one group ({lane} crops)",
+               lambda: pipe.gen_mod(gen_in, z), device)
+        _stage(f"  SR seat, one lane of one group ({lane} crops, "
+               f"{pipe.sr.student.num_conv + 2} S2 launches)",
+               lambda: pipe.sr(y), device)
+        _stage("download one chunk (card -> numpy)",
+               lambda: out_dev.cpu().numpy(), device)
+        _stage(f"smooth_tracks ({len(frames)} frames, T={t}, host)",
+               lambda: smooth_tracks(kps_all, np.ones(kps_all.shape[:2],
+                                                      bool)), device)
+
+
 def main(argv):
     import torch
 
@@ -914,6 +1285,10 @@ def main(argv):
     launches.update({k: v for k, v in phase_k3_path(device).items()
                      if k.startswith("fused_layer_norm")})
     phase_train_parity(device)
+    stats["conv3x3"] = phase_s2(device, card)
+    phase_seat_parity(device, card)
+    launches["conv3x3"] = phase_video(device, card,
+                                      profile="--profile" in argv)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():

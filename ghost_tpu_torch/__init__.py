@@ -5,5 +5,5 @@ Module paths and names mirror `ghost_tpu` one for one
 functions keep the JAX layouts (NHWC images, (B,T,2,3) matrices,
 (B,106,2) landmarks); the conv nets run NCHW tensors in
 `torch.channels_last` memory inside. The package imports torch and
-numpy only, never jax or ghost_tpu.
+numpy (and msgpack, to read flax checkpoints), never jax or ghost_tpu.
 """

@@ -17,8 +17,14 @@ levels that `ghost_tpu/nn/layers.py` adds (`Conv_0`, `Dense_0`,
                   projections are Dense layers)
   WeightNormDense v (in,out) -> v as it is; g, bias
   MLP             dense{i} are Dense layers
+  Conv3x3 kernel  HWIO kept as it is (the layout S2 reads); bias
+  SRVGGNetCompact prelu_{i}, bare params at the module's own level
+  SimplifiedLIP   in_scale/in_bias, bare params at its own level
+  SpectralConv    kernel -> OIHW as Conv (its (cin, kh, kw) flatten is
+                  the power-iteration order); bias; 'spectral' u, v
+  BatchNorm       with affine=False (SPADE's pfn): batch_stats only
 
-The bridge is strict: every port tensor is filled exactly once and
+Collections read: params, batch_stats, spectral. The bridge is strict: every port tensor is filled exactly once and
 every flax leaf is used exactly once, or it raises.
 """
 
@@ -30,8 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, Dense,
-                                       PReLU)
+from ghost_tpu_torch.models.sr.generator import SimplifiedLIP
+from ghost_tpu_torch.models.sr.spade import SpectralConv
+from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
+from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, Conv3x3, ConvTranspose,
+                                       Dense, PReLU)
 from ghost_tpu_torch.nn.modules import MultiheadAttention, WeightNormDense
 
 _WRAPPERS = frozenset({"Conv_0", "Dense_0", "BatchNorm_0"})
@@ -53,7 +62,15 @@ _LEAF_MAP = {
     (WeightNormDense, "v"): ("v", None),
     (WeightNormDense, "g"): ("g", None),
     (WeightNormDense, "bias"): ("bias", None),
+    (Conv3x3, "kernel"): ("weight", None),
+    (Conv3x3, "bias"): ("bias", None),
+    (SpectralConv, "kernel"): ("weight", lambda v: v.transpose(3, 2, 0, 1)),
+    (SpectralConv, "bias"): ("bias", None),
+    (SpectralConv, "u"): ("u", None),
+    (SpectralConv, "v"): ("v", None),
 }
+# modules whose own bare parameters are flax leaves of the same name
+_BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP)
 
 
 def _flatten(tree, prefix=()):
@@ -70,7 +87,7 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
     filled = set()
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "spectral"):
         for path, value in _flatten(variables.get(collection, {})):
             names = [p for p in path if p not in _WRAPPERS]
             where = "/".join(path)
@@ -81,6 +98,9 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
                 raise KeyError(f"flax leaf {collection}/{where}: no port "
                                f"module {mod_name!r}") from e
             rule = _LEAF_MAP.get((type(mod), names[-1]))
+            if (rule is None and isinstance(mod, _BARE_PARAMS)
+                    and names[-1] in dict(mod.named_parameters(recurse=False))):
+                rule = (names[-1], None)
             if rule is None:
                 raise KeyError(f"flax leaf {collection}/{where}: "
                                f"{type(mod).__name__} has no {names[-1]!r}")

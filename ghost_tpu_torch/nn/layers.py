@@ -2,8 +2,8 @@
 
 Modules take and return NCHW tensors (the conv nets keep them in
 `torch.channels_last` memory, so a pixel's C values are contiguous);
-the free functions `instance_norm` and `resize*` keep the JAX package's
-NHWC layout. Parameters are float32 and initialised like flax's
+`Conv3x3` (S2, the SR trunks) and the free functions `instance_norm`,
+`rms_instance_norm` and `resize*` keep the JAX package's NHWC layout. Parameters are float32 and initialised like flax's
 (`xavier_normal` kernels, zero biases, BN scale 1 / bias 0 / mean 0 /
 var 1, PReLU 0.25) by `init_weights`; the weight bridge
 (`convert/from_jax.py`) fills the same tensors from a flax tree.
@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ghost_tpu_torch.ops.cuda.conv3x3 import conv3x3
 
 
 def _pair(v):
@@ -71,6 +73,33 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         self.stride, self.padding, 1, self.groups)
+
+
+class Conv3x3(nn.Module):
+    """3x3 stride-1 SAME conv on NHWC tensors through S2
+    (`ops/cuda/conv3x3.py`: the CUDA kernel for CUDA tensors). The weight
+    stays in flax's HWIO layout (3, 3, cin, cout), the layout S2 reads;
+    the bias stays float32 and is added in S2's f32 epilogue."""
+
+    def __init__(self, cin, cout, use_bias=True, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(3, 3, cin, cout, device=device))
+        self.bias = (nn.Parameter(torch.empty(cout, device=device))
+                     if use_bias else None)
+
+    def reset_parameters(self, generator):
+        # flax xavier_normal on HWIO: fan_in 9*cin, fan_out 9*cout
+        _, _, cin, cout = self.weight.shape
+        std = math.sqrt(2.0 / (9 * cin + 9 * cout))
+        self.weight.normal_(0.0, std, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return conv3x3(x.to(self.dtype).contiguous(),
+                       self.weight.to(self.dtype), self.bias)
 
 
 class ConvTranspose(nn.Module):
@@ -128,29 +157,37 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """Eval-mode BatchNorm over dim 1, flax numerics: (x - mean) *
-    (rsqrt(var + eps) * scale) + bias in f32, cast to `dtype`."""
+    (rsqrt(var + eps) * scale) + bias in f32, cast to `dtype`.
+    affine=False is flax's use_scale=False, use_bias=False."""
 
-    def __init__(self, features, eps=1e-5, dtype=torch.float32, device=None):
+    def __init__(self, features, eps=1e-5, dtype=torch.float32, device=None,
+                 affine=True):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(features, device=device))
-        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.weight = self.bias = None
+        if affine:
+            self.weight = nn.Parameter(torch.empty(features, device=device))
+            self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean",
                              torch.empty(features, device=device))
         self.register_buffer("running_var",
                              torch.empty(features, device=device))
 
     def reset_parameters(self, generator):
-        nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
+            nn.init.zeros_(self.bias)
         nn.init.zeros_(self.running_mean)
         nn.init.ones_(self.running_var)
 
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         mean = self.running_mean.view(shape)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        mul = torch.rsqrt(self.running_var + self.eps)
+        if self.weight is None:
+            return ((x.float() - mean) * mul.view(shape)).to(self.dtype)
+        mul = mul * self.weight
         y = (x.float() - mean) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype)
 
@@ -185,6 +222,13 @@ def instance_norm(x, eps: float = 1e-5):
     return xc * torch.rsqrt(var + eps).to(x.dtype)
 
 
+def rms_instance_norm(x, eps: float = 1e-8):
+    """SPADE's mean-free InstanceNorm2d over NHWC axes (1, 2):
+    x * rsqrt(mean(x^2) + eps) (`ghost_tpu/nn/layers.py:320-324`)."""
+    ms = torch.mean(torch.square(x), dim=(1, 2), keepdim=True)
+    return x * torch.rsqrt(ms + eps)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Flax-style random init of every layer, in module order: each of the
     port's modules with a `reset_parameters(generator)` draws its own."""
@@ -199,11 +243,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def cast_to_compute_dtype(model: nn.Module) -> nn.Module:
     """Cast conv / dense weights to each layer's compute dtype, once.
 
-    BatchNorm stays f32 (it normalises in f32) and PReLU casts its slope
-    per call like flax. Equal to flax's per-call cast of f32 params."""
+    BatchNorm stays f32 (it normalises in f32), PReLU casts its slope
+    per call like flax, and a Conv3x3 keeps its bias f32 (S2 adds it in
+    f32). Equal to flax's per-call cast of f32 params."""
     for m in model.modules():
         if isinstance(m, (Conv, ConvTranspose, Dense)):
             m.to(m.dtype)
+        elif isinstance(m, Conv3x3):
+            m.weight.data = m.weight.data.to(m.dtype)
     return model
 
 

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "ghost_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("aad_modulate", "flash_attention", "layer_norm")
+SOURCES = ("aad_modulate", "flash_attention", "layer_norm", "conv3x3")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_REPORTS: dict[str, dict] = {}

@@ -193,9 +193,15 @@ def test_build_without_device_needs_a_card():
 
 
 def test_port_imports_neither_jax_nor_ghost_tpu():
-    code = ("import sys, ghost_tpu_torch.pipeline.swap\n"
-            "import ghost_tpu_torch.nn.modules, ghost_tpu_torch.train.optimizers\n"
-            "import ghost_tpu_torch.convert.from_jax\n"
+    """Every module of ghost_tpu_torch, found by walking the package,
+    imports without pulling in jax, flax or ghost_tpu."""
+    code = ("import importlib, pkgutil, sys, ghost_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "ghost_tpu_torch.__path__, 'ghost_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'ghost_tpu_torch.core.checkpoint' in names, names\n"
+            "assert 'ghost_tpu_torch.models.sr.spade' in names, names\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ghost_tpu'))\n"
             "assert not bad, bad\n")
