@@ -19,11 +19,15 @@ exits non-zero without its result lines:
   5. main     `_detect_swap` at full width (SCRFD 640, iresnet100, AEI-Net
               unet 2 blocks, bf16) on a chunk of 8 seeded 1080p frames:
               output shape, 21 K1 launches per call, a real blend, frames/s
-  6. K2       flash attention forward, dq and dk/dv vs their plain
-              versions at (8,8,1024|4096,64) bf16 causal and not,
-              (1,1,2560,64) causal f32 with q tiles of 48 against k tiles
-              of 64, (2,2,640,128) f32; times beside SDPA, aten's flash
-              backward and the bounds
+  6. K2       HMMA counts of each kernel in the built library
+              (cuobjdump -sass); flash attention forward, dq and dk/dv vs
+              their plain versions at (8,8,1024|4096,64) bf16 causal and
+              not, (1,1,2560,64) causal f32 with q tiles of 48 against k
+              tiles of 64, (2,2,640,128) f32, and in bf16 S=1000, S=2560
+              causal, D=128, split heads and D=256, with the kernel family
+              that ran; each bf16 case's dq, dk, dv against the f32
+              gradient beside aten's flash fwd+bwd; times beside SDPA,
+              aten's flash backward and the bounds
   7. K3       fused LayerNorm forward and backward vs plain at 8192x1024,
               1000x768 and 37x8192, bf16 and f32; times, each call on
               one of 8 input sets so it reads HBM, beside F.layer_norm /
@@ -31,7 +35,8 @@ exits non-zero without its result lines:
   8. train    the slice's path at full width: MultiheadAttention (8 heads
               x 64, causal, norm_add) + MLP (2048, 512), bf16 compute, on
               seeded x (8,4096,512), cross-entropy, 3 ghost_adam steps:
-              finite losses, one K2 fwd, dq and dk/dv launch per step
+              the losses, one K2 fwd, dq and dk/dv launch per step, dq
+              and dk/dv on the bf16 tensor-core kernels
   9. K3 path  fused_layer_norm fwd+bwd through autograd at 8192x1024
  10. parity   the tiny f32 block, 3 steps on the CPU and on the card
  11. S2       the 3x3 conv vs its plain version at the scripts' blk8
@@ -77,14 +82,25 @@ AAD_B = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same sheet
 F32_FLOPS = 67e12          # f32 outside the tensor cores, same sheet
-# K2 kernel-vs-plain cases: (B, H, S, D, dtype, causal, block_q, timed);
-# S=2560 causal in f32 with q tiles of 48 against k tiles of 64
-K2_CASES = [(8, 8, 1024, 64, "bfloat16", False, 64, True),
-            (8, 8, 1024, 64, "bfloat16", True, 64, True),
-            (8, 8, 4096, 64, "bfloat16", False, 64, True),
-            (8, 8, 4096, 64, "bfloat16", True, 64, True),
-            (1, 1, 2560, 64, "float32", True, 48, False),
-            (2, 2, 640, 128, "float32", False, 64, False)]
+# K2 kernel-vs-plain cases: (B, H, S, D, dtype, causal, block_q, timed,
+# strided); S=2560 causal in f32 with q tiles of 48 against k tiles of 64;
+# in bf16 S=1000 (no multiple of any tile), S=2560 causal, D=128, the
+# split heads of a (B, S, H*D) projection (strided, no copy) and D=256
+# (the FMA kernels)
+K2_CASES = [(8, 8, 1024, 64, "bfloat16", False, 64, True, False),
+            (8, 8, 1024, 64, "bfloat16", True, 64, True, False),
+            (8, 8, 4096, 64, "bfloat16", False, 64, True, False),
+            (8, 8, 4096, 64, "bfloat16", True, 64, True, False),
+            (1, 1, 2560, 64, "float32", True, 48, False, False),
+            (2, 2, 640, 128, "float32", False, 64, False, False),
+            (2, 4, 1000, 64, "bfloat16", False, 64, False, False),
+            (2, 4, 1000, 64, "bfloat16", True, 64, False, False),
+            (1, 4, 2560, 64, "bfloat16", True, 64, False, False),
+            (2, 4, 1024, 128, "bfloat16", False, 64, False, False),
+            (2, 4, 1024, 128, "bfloat16", True, 64, False, False),
+            (2, 8, 1024, 64, "bfloat16", False, 64, False, True),
+            (2, 8, 1024, 64, "bfloat16", True, 64, False, True),
+            (1, 2, 384, 256, "bfloat16", True, 64, False, False)]
 # K3 cases: (rows, h, dtype, timed)
 # input sets the timed K3 cases rotate through (each call reads HBM)
 K3_SETS = 8
@@ -94,6 +110,11 @@ K3_CASES = [(8192, 1024, "bfloat16", True), (8192, 1024, "float32", True),
 # the training slice at full width, and cut down for CPU-vs-card parity
 TRAIN = dict(batch=8, seq=4096, heads=8, head_dim=64, hidden=2048, steps=3,
              lr=4e-4)
+# the training losses with f32 p and ds in the backward: the first step's
+# is forward only and must repeat exactly (6 decimals); the next two may
+# move within TRAIN_LOSS_TOL now that p and ds enter bf16 products
+TRAIN_LOSSES = (6.395020, 6.303970, 6.231132)
+TRAIN_LOSS_TOL = 1e-2
 TRAIN_PARITY = dict(batch=2, seq=128, heads=2, head_dim=16, hidden=64)
 PARITY_CFG = dict(det_size=320, chunk_size=2, max_faces=4, match_faces=2,
                   similarity_th=-2.0)
@@ -508,10 +529,18 @@ def _wrappers():
 def zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "tensor_core_launches"):
+            fn.tensor_core_launches = 0
 
 
 def read_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def read_tensor_core_counts():
+    """The K2 backward launches that ran on the bf16 tensor cores."""
+    return {name: fn.tensor_core_launches for name, fn in _wrappers().items()
+            if hasattr(fn, "tensor_core_launches")}
 
 
 # ---------------------------------------------------------------------------
@@ -579,20 +608,33 @@ def phase_k2(device, card):
 
     worst, main = {}, {}
     log(f"K2 flash attention vs plain ({card}):")
-    for b, h, s, d, dt, causal, bq, timed in K2_CASES:
+    phase_sass()
+    for b, h, s, d, dt, causal, bq, timed, strided in K2_CASES:
         dtype = getattr(torch, dt)
         g = torch.Generator(device=device).manual_seed(s + d)
-        q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=device)
-                       .to(dtype) for _ in range(4))
+        if strided:  # heads split from (B, S, H*D) projections, no copy
+            q, k, v, do = (torch.randn(b, s, h * d, generator=g,
+                                       device=device).to(dtype)
+                           .view(b, s, h, d).transpose(1, 2)
+                           for _ in range(4))
+        else:
+            q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=device)
+                           .to(dtype) for _ in range(4))
         scale = 1 / d ** 0.5
+        before = read_tensor_core_counts()
         out, lse, delta, dq, dk, dv = A._flash_attention_tiles(q, k, v, do,
                                                                causal, bq)
+        tc = {n: c - before[n] for n, c in read_tensor_core_counts().items()}
+        if set(tc.values()) != {int(A.on_tensor_cores(q))}:
+            raise AssertionError(f"tensor-core launches {tc} for {dt} D={d}")
+        route = "tensor-core" if A.on_tensor_cores(q) else "FMA"
         ref, ref_lse = A.flash_attention_fwd_plain(q, k, v, causal)
         args = (q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize(device)
         want_dq = A.flash_attention_bwd_dq_plain(*args)
         want_dk, want_dv = A.flash_attention_bwd_dkv_plain(*args)
-        tag = f"({b},{h},{s},{d}) {dt} causal={causal} block_q={bq}"
+        tag = (f"({b},{h},{s},{d}) {dt} causal={causal} block_q={bq}"
+               + (" strided heads" if strided else ""))
         errs = [_close("flash_attention_fwd", out, ref, dtype, worst),
                 _close("flash_attention_fwd", lse, ref_lse, torch.float32,
                        worst),
@@ -600,8 +642,11 @@ def phase_k2(device, card):
                 _close("flash_attention_bwd_dkv", dk, want_dk, dtype, worst),
                 _close("flash_attention_bwd_dkv", dv, want_dv, dtype, worst)]
         log(f"  {tag}: max err out {errs[0]:.2e} lse {errs[1]:.2e} dq "
-            f"{errs[2]:.2e} dk {errs[3]:.2e} dv {errs[4]:.2e} (within bound)")
+            f"{errs[2]:.2e} dk {errs[3]:.2e} dv {errs[4]:.2e} (within bound; "
+            f"dq and dk/dv on the {route} kernels)")
         del ref, ref_lse, want_dq, want_dk, want_dv
+        if dtype == torch.bfloat16:
+            _vs_f32(tag, q, k, v, do, causal, scale, (dq, dk, dv))
         if not timed:
             continue
         iters = 3 if s <= 1024 else 2
@@ -686,6 +731,75 @@ def phase_k2(device, card):
     for name in main:
         main[name]["max_abs_err"] = worst[name]
     return main
+
+
+def _vs_f32(tag, q, k, v, do, causal, scale, grads):
+    """The kernels' bf16 (dq, dk, dv) against the f32 gradient (the plain
+    functions on the same bf16 values in f32, with the f32 forward's LSE
+    and delta), beside aten's flash forward + backward on the same bf16
+    inputs. Each may err at most twice as much as aten's plus
+    1e-4 max|ref|: both round p and ds to bf16 for their products."""
+    import torch
+
+    from ghost_tpu_torch.ops.cuda import attention as A
+
+    f32 = [t.float() for t in (q, k, v, do)]
+    o32, lse32 = A.flash_attention_fwd_plain(*f32[:3], causal, scale)
+    a32 = (*f32, lse32, A.attention_delta(o32, f32[3]), causal, scale)
+    ref = (A.flash_attention_bwd_dq_plain(*a32),
+           *A.flash_attention_bwd_dkv_plain(*a32))
+    del f32, o32, lse32, a32
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    lib_o, lib_lse, cq, ck, mq, mk, seed, offset = \
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            qc, kc, vc, 0.0, causal, False, scale=scale)[:8]
+    lib = torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        doc, qc, kc, vc, lib_o, lib_lse, cq, ck, mq, mk, 0.0, causal, seed,
+        offset, scale=scale)[:3]
+    parts, ok = [], True
+    for name, got, lg, r in zip(("dq", "dk", "dv"), grads, lib, ref):
+        ek = float((got.float() - r).abs().max())
+        el = float((lg.float() - r).abs().max())
+        ok = ok and ek <= 2 * el + 1e-4 * float(r.abs().max())
+        parts.append(f"{name} {ek:.3e} (aten {el:.3e})")
+    log(f"  {tag} vs the f32 gradient, max err: {', '.join(parts)}; "
+        f"within 2 x aten + 1e-4 max|ref|: {ok}")
+    if not ok:
+        raise AssertionError(f"{tag}: less accurate than aten's flash "
+                             "backward allows")
+
+
+def phase_sass():
+    """HMMA/HGMMA instructions in each kernel of the built K2 library
+    (cuobjdump -sass): the tensor-core dq and dk/dv must have some."""
+    import re
+
+    from ghost_tpu_torch.ops.cuda import _build
+
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-sass",
+                          str(_build._lib_path("flash_attention"))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : \S*?(flash_(?:fwd|dq|dkv)(?:_mma)?_kernel)"
+                      r"I(\w+?)EEv", line)
+        if m:
+            targs = (m.group(2).replace("13__nv_bfloat16", "bf16,")
+                     .replace("Lb1E", "vec").replace("Lb0E", "elem"))
+            targs = re.sub(r"Li(\d+)E", r"\1,", re.sub(r"^f", "f32,", targs))
+            fn = f"{m.group(1)}<{targs.rstrip(',')}>"
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[fn] += 1
+    log(f"K2 tensor-core instructions (HMMA/HGMMA in cuobjdump -sass of "
+        f"{_build._lib_path('flash_attention').name}):")
+    for fn, n in counts.items():
+        log(f"  {fn}: {n}")
+    mma = {fn: n for fn, n in counts.items() if "_mma_kernel" in fn}
+    if len(mma) != 8 or not all(mma.values()):
+        raise AssertionError(f"tensor-core kernels without HMMA: {mma}")
 
 
 def phase_k3(device, card):
@@ -890,12 +1004,22 @@ def phase_train(device, card):
         f"{', '.join(f'{v:.1f}' for v in steps_ms)}; peak "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; launches {counts} "
         f"({card})")
+    tc = read_tensor_core_counts()
+    log(f"train: dq and dk/dv launches on the bf16 tensor-core kernels {tc}; "
+        f"losses against the f32-p/ds run {TRAIN_LOSSES}: first exact, "
+        f"then within {TRAIN_LOSS_TOL}")
     want = [(i + 1,) * 3 for i in range(t["steps"])]
     if per_step != want:
         raise AssertionError(f"K2 launches after each step {per_step}, "
                              f"want {want}")
+    if set(tc.values()) != {t["steps"]}:
+        raise AssertionError(f"tensor-core launches {tc}, want {t['steps']}")
     if not all(abs(v) < float("inf") for v in losses):
         raise AssertionError(f"non-finite losses {losses}")
+    if (round(losses[0], 6) != TRAIN_LOSSES[0]
+            or any(abs(a - b) > TRAIN_LOSS_TOL
+                   for a, b in zip(losses[1:], TRAIN_LOSSES[1:]))):
+        raise AssertionError(f"losses {losses}, want {TRAIN_LOSSES}")
     return counts
 
 

@@ -13,28 +13,47 @@
 //            dk *= scale (dv is not scaled)
 //
 // delta = rowsum(dO * o) in f32 comes from the caller, as in the JAX
-// backward. All arithmetic is f32; inputs are upcast when they are staged
-// in shared memory, outputs cast to the inputs' dtypes. Masked entries
-// take -1e30, not -inf, so their p is exactly 0 and never NaN.
+// backward. Masked entries take -1e30, not -inf, so their p is exactly 0
+// and never NaN.
+//
+// Two families of kernels:
+//   FMA          the forward in both dtypes, and dq and dk/dv in float32
+//                and for bf16 with 128 < D <= 256. All arithmetic is f32
+//                on the CUDA cores (67 TFLOP/s at most): inputs are
+//                upcast when they are staged in shared memory, each
+//                thread computes a 4 x 4 tile of scores from float4
+//                reads of transposed tiles, outputs are cast to the
+//                inputs' dtypes.
+//   tensor core  dq and dk/dv in bf16 with D <= 128 (flash_dq_mma_kernel,
+//                flash_dkv_mma_kernel): every product on the bf16 tensor
+//                cores through mma.sync m16n8k16 (mma_tiles.cuh), with
+//                f32 accumulators. p and ds are formed in f32 and rounded
+//                to bf16 where they enter a product (dq += ds k, dv +=
+//                p^T dO, dk += ds^T q), as FlashAttention-2 does; the
+//                plain versions round at the same places. p is taken as
+//                exp2(s scale log2(e) - lse log2(e)), one FMA and the
+//                hardware exp2 per score. 128 < D <= 256
+//                stays on the FMA kernels: its f32 dk and dv accumulators
+//                alone would fill a warp's registers.
 //
 // Bound: at (B, H, S, D) = (8, 8, 4096, 64) the forward is two products of
 // 4 B H S^2 D = 2.75e11 flops (half that causal) and the backward's least
 // work five, 6.9e11: on the tensor cores (989 TFLOP/s bf16) 0.28 and
 // 0.69 ms, against ~4 MB of q/k/v/o per head group. The work is bound by
-// operations. This first kernel is the simple, right one: the products
-// run as f32 FMAs on the CUDA cores (67 TFLOP/s at most), each thread
-// computing a 4 x 4 tile of scores from float4 reads of transposed q/k
-// tiles in shared memory, so it is expected far above that bound.
-// wgmma/TMA tiles are the next step.
+// operations, hence the tensor cores; dq recomputes s and dp (7 products
+// in all, as in the JAX kernels) so that no kernel needs atomics and the
+// outputs are the same bits on every run.
 //
 // Tiles: a block owns BQ query rows (fwd, dq) or BK key rows (dkv) and
-// loops over the other side in tiles; (BQ/4) x (BK/4) threads. D is
-// padded with zeros to DP in {64, 128, 256}. The causal loop bounds are
-// those of the JAX kernels: k tiles up to cdiv of the EXCLUSIVE row end
-// (q0 + BQ), capped at the tile count; in dkv q tiles from
-// floor(k0 / BQ). Both hold for tiles that do not divide each other
-// (BQ = 48 with BK = 64 is built for that check). Rows and columns past
-// S are masked, so any S works.
+// loops over the other side in tiles. FMA: (BQ/4) x (BK/4) threads, D
+// padded with zeros to DP in {64, 128, 256}. Tensor core: 16 rows per
+// warp, D padded to DP in {64, 128}, the streamed tiles in a two-stage
+// cp.async ring (see dispatch_mma). The causal loop bounds are those of
+// the JAX kernels: k tiles up to cdiv of the EXCLUSIVE row end (q0 + BQ),
+// capped at the tile count; in dkv q tiles from floor(k0 / BQ). Both hold
+// for tiles that do not divide each other (FMA BQ = 48 with BK = 64 is
+// built for that check). Rows and columns past S are masked, so any S
+// works.
 //
 // Inputs are (B, H, S, D) views with unit D stride and any b/h/s strides
 // (the split heads of a (B, S, H*D) projection need no copy); outputs
@@ -43,13 +62,16 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
+#include "mma_tiles.cuh"
 #include "num.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s;
@@ -418,6 +440,322 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, NJ, TC>(dv + off, dv_acc, one, k0 + a0, col0, tc, S, D);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dq and dk/dv on the tensor cores (D <= 128)
+// ---------------------------------------------------------------------------
+//
+// Every product is mma.sync m16n8k16 (bf16 in, f32 accumulate). Each warp
+// owns 16 rows of the block's tile: q rows in dq, key rows in dk/dv. The
+// block's own tiles stay in shared memory as bf16; the streamed tiles go
+// through a two-stage cp.async ring, tile j + 1 loading while tile j
+// computes. The scores and dP stay in registers: p and ds are formed in
+// f32, rounded to bf16 and packed straight into A fragments (pack_a) for
+// dq += ds k, dv += p^T dO and dk += ds^T q, so neither goes through
+// shared memory, and one barrier per streamed tile frees its stage.
+
+using mma_tiles::bf16;
+
+template <int DP, int NW, int BKT>
+struct DqMmaSmem {
+  static constexpr size_t bytes =
+      (2 * 16 * NW + 4 * BKT) * (DP + 8) * sizeof(bf16);
+};
+
+// Grid (ceil(S / BQ), B * H), BQ = 16 NW: q tiles in reverse, so the
+// longest causal rows start first. Streams K and V tiles of BKT keys.
+template <int DP, int NW, int BKT, bool VEC>
+__global__ void __launch_bounds__(NW * 32)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    Strides sq, Strides sk, Strides sv, Strides sdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int H, int S, int D, float scale, int causal) {
+  using namespace mma_tiles;
+  constexpr int BQ = 16 * NW, NT = 32 * NW, LD = DP + 8;
+  constexpr int NK = BKT / 8, ND = DP / 8;
+  extern __shared__ float4 smem4[];
+  bf16* qS = reinterpret_cast<bf16*>(smem4);  // [BQ][LD]
+  bf16* doS = qS + BQ * LD;                   // [BQ][LD]
+  bf16* kS = doS + BQ * LD;                   // [2][BKT][LD]
+  bf16* vS = kS + 2 * BKT * LD;               // [2][BKT][LD]
+
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const bf16* qb = q + b * sq.b + hh * sq.h;
+  const bf16* kb = k + b * sk.b + hh * sk.h;
+  const bf16* vb = v + b * sv.b + hh * sv.h;
+  const bf16* dob = dout + b * sdo.b + hh * sdo.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const LaneOffsets lo(lane);
+
+  const int n_kt = (S + BKT - 1) / BKT;
+  const int upper = causal ? min((q0 + BQ + BKT - 1) / BKT, n_kt) : n_kt;
+  load_tile<BQ, DP, NT, VEC>(qS, qb, sq.s, q0, S, D);
+  load_tile<BQ, DP, NT, VEC>(doS, dob, sdo.s, q0, S, D);
+  load_tile<BKT, DP, NT, VEC>(kS, kb, sk.s, 0, S, D);
+  load_tile<BKT, DP, NT, VEC>(vS, vb, sv.s, 0, S, D);
+  cp_async_commit();
+
+  // this lane's two rows: g and g + 8 of the warp's 16
+  int row[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    row[h2] = q0 + warp * 16 + g + 8 * h2;
+    const bool in = row[h2] < S;
+    lse_r[h2] = in ? kLog2e * lse[static_cast<size_t>(bh) * S + row[h2]]
+                   : 0.f;
+    delta_r[h2] = in ? delta[static_cast<size_t>(bh) * S + row[h2]] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  const bf16* qW = qS + warp * 16 * LD;
+  const bf16* doW = doS + warp * 16 * LD;
+  for (int kt = 0; kt < upper; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < upper) {
+      load_tile<BKT, DP, NT, VEC>(kS + (st ^ 1) * BKT * LD, kb, sk.s,
+                                  (kt + 1) * BKT, S, D);
+      load_tile<BKT, DP, NT, VEC>(vS + (st ^ 1) * BKT * LD, vb, sv.s,
+                                  (kt + 1) * BKT, S, D);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kT = kS + st * BKT * LD;
+    const bf16* vT = vS + st * BKT * LD;
+
+    // s = q k^T and dp = dO v^T, (16 x BKT) per warp
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, qW + lo.a_row * LD + kk * 16 + lo.a_col);
+      ldsm_x4(ado, doW + lo.a_row * LD + kk * 16 + lo.a_col);
+#pragma unroll
+      for (int nj = 0; nj < BKT / 16; ++nj) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, kT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
+        ldsm_x4(bv, vT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
+        mma_bf16(s[2 * nj], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * nj + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * nj], ado, bv[0], bv[1]);
+        mma_bf16(dp[2 * nj + 1], ado, bv[2], bv[3]);
+      }
+    }
+
+    // ds = p (dp - delta), p = exp(s scale - lse) as a power of 2,
+    // masked entries -1e30
+    const int k0 = kt * BKT;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int h2 = c / 2, col = k0 + 8 * j + 2 * t + (c & 1);
+        float x = fmaf(s[j][c], scale2, -lse_r[h2]);
+        if (col >= S || (causal && col > row[h2])) x = kNegInf;
+        const float p = exp2f(x);
+        dp[j][c] = p * (dp[j][c] - delta_r[h2]);
+      }
+
+    // dq += ds k: ds (16 x BKT) from registers, k through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk) {
+      uint32_t ads[4];
+      pack_a(ads, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < DP / 16; ++dn) {
+        uint32_t bk[4];
+        const int off = (kk * 16 + lo.bk_row) * LD + dn * 16 + lo.bk_col;
+        ldsm_x4_trans(bk, kT + off);
+        mma_bf16(acc[2 * dn], ads, bk[0], bk[1]);
+        mma_bf16(acc[2 * dn + 1], ads, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed: the next load may fill it
+  }
+
+  bf16* out = dq + static_cast<size_t>(bh) * S * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = row[c / 2], col = 8 * j + 2 * t + (c & 1);
+      if (r < S && col < D)
+        Num<bf16>::store(out + static_cast<size_t>(r) * D + col,
+                         acc[j][c] * scale);
+    }
+}
+
+template <int DP, int NW, int BQT>
+struct DkvMmaSmem {
+  static constexpr size_t bytes =
+      (2 * 16 * NW + 4 * BQT) * (DP + 8) * sizeof(bf16) +
+      4 * BQT * sizeof(float);
+};
+
+// Grid (ceil(S / BK), B * H), BK = 16 NW: k tiles in order, so the
+// longest causal columns start first. Streams Q and dO tiles of BQT rows
+// with their lse and delta. The products run transposed: s^T = k q^T and
+// dp^T = v dO^T (keys are the rows), so p^T and ds^T are A fragments.
+template <int DP, int NW, int BQT, bool VEC>
+__global__ void __launch_bounds__(NW * 32)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, Strides sq, Strides sk,
+                     Strides sv, Strides sdo, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int S, int D, float scale,
+                     int causal) {
+  using namespace mma_tiles;
+  constexpr int BK = 16 * NW, NT = 32 * NW, LD = DP + 8;
+  constexpr int NQ = BQT / 8, ND = DP / 8;
+  extern __shared__ float4 smem4[];
+  bf16* kS = reinterpret_cast<bf16*>(smem4);  // [BK][LD]
+  bf16* vS = kS + BK * LD;                    // [BK][LD]
+  bf16* qS = vS + BK * LD;                    // [2][BQT][LD]
+  bf16* doS = qS + 2 * BQT * LD;              // [2][BQT][LD]
+  float* lseS = reinterpret_cast<float*>(doS + 2 * BQT * LD);  // [2][BQT]
+  float* dltS = lseS + 2 * BQT;                                // [2][BQT]
+
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const int k0 = blockIdx.x * BK;
+  const bf16* qb = q + b * sq.b + hh * sq.h;
+  const bf16* kb = k + b * sk.b + hh * sk.h;
+  const bf16* vb = v + b * sv.b + hh * sv.h;
+  const bf16* dob = dout + b * sdo.b + hh * sdo.h;
+  const float* lseb = lse + static_cast<size_t>(bh) * S;
+  const float* dltb = delta + static_cast<size_t>(bh) * S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const LaneOffsets lo(lane);
+
+  // one streamed stage: the Q and dO tile at r0 and its lse and delta
+  auto load_stage = [&](int st, int r0) {
+    load_tile<BQT, DP, NT, VEC>(qS + st * BQT * LD, qb, sq.s, r0, S, D);
+    load_tile<BQT, DP, NT, VEC>(doS + st * BQT * LD, dob, sdo.s, r0, S, D);
+    for (int i = threadIdx.x; i < BQT; i += NT) {
+      const bool in = r0 + i < S;
+      cp_async4(lseS + st * BQT + i, in ? lseb + r0 + i : lseb, in ? 4 : 0);
+      cp_async4(dltS + st * BQT + i, in ? dltb + r0 + i : dltb, in ? 4 : 0);
+    }
+  };
+  const float scale2 = scale * kLog2e;
+
+  const int n_qt = (S + BQT - 1) / BQT;
+  const int lower = causal ? k0 / BQT : 0;
+  load_tile<BK, DP, NT, VEC>(kS, kb, sk.s, k0, S, D);
+  load_tile<BK, DP, NT, VEC>(vS, vb, sv.s, k0, S, D);
+  load_stage(0, lower * BQT);
+  cp_async_commit();
+
+  // this lane's two key rows: g and g + 8 of the warp's 16
+  const int key0 = k0 + warp * 16 + g;
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
+
+  const bf16* kW = kS + warp * 16 * LD;
+  const bf16* vW = vS + warp * 16 * LD;
+  for (int qt = lower; qt < n_qt; ++qt) {
+    const int st = (qt - lower) & 1;
+    if (qt + 1 < n_qt) load_stage(st ^ 1, (qt + 1) * BQT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qT = qS + st * BQT * LD;
+    const bf16* doT = doS + st * BQT * LD;
+    const float* lseT = lseS + st * BQT;
+    const float* dltT = dltS + st * BQT;
+
+    // s^T = k q^T and dp^T = v dO^T, (16 x BQT) per warp
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, kW + lo.a_row * LD + kk * 16 + lo.a_col);
+      ldsm_x4(av, vW + lo.a_row * LD + kk * 16 + lo.a_col);
+#pragma unroll
+      for (int nj = 0; nj < BQT / 16; ++nj) {
+        uint32_t bq[4], bdo[4];
+        ldsm_x4(bq, qT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
+        ldsm_x4(bdo, doT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
+        mma_bf16(s[2 * nj], ak, bq[0], bq[1]);
+        mma_bf16(s[2 * nj + 1], ak, bq[2], bq[3]);
+        mma_bf16(dp[2 * nj], av, bdo[0], bdo[1]);
+        mma_bf16(dp[2 * nj + 1], av, bdo[2], bdo[3]);
+      }
+    }
+
+    // p^T into s, ds^T into dp (p as a power of 2); entry (key, query)
+    // masked past S and where key > query
+    const int r0 = qt * BQT;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = key0 + 8 * (c / 2), ql = 8 * j + 2 * t + (c & 1);
+        const int qrow = r0 + ql;
+        float x = fmaf(s[j][c], scale2, -lseT[ql] * kLog2e);
+        if (qrow >= S || key >= S || (causal && key > qrow)) x = kNegInf;
+        const float p = exp2f(x);
+        s[j][c] = p;
+        dp[j][c] = p * (dp[j][c] - dltT[ql]);
+      }
+
+    // dv += p^T dO and dk += ds^T q: A from registers, dO and q through
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk) {
+      uint32_t ap[4], ads[4];
+      pack_a(ap, s[2 * kk], s[2 * kk + 1]);
+      pack_a(ads, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < DP / 16; ++dn) {
+        uint32_t bdo[4], bq[4];
+        const int off = (kk * 16 + lo.bk_row) * LD + dn * 16 + lo.bk_col;
+        ldsm_x4_trans(bdo, doT + off);
+        ldsm_x4_trans(bq, qT + off);
+        mma_bf16(dv_acc[2 * dn], ap, bdo[0], bdo[1]);
+        mma_bf16(dv_acc[2 * dn + 1], ap, bdo[2], bdo[3]);
+        mma_bf16(dk_acc[2 * dn], ads, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * dn + 1], ads, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed: the next load may fill it
+  }
+
+  const size_t off = static_cast<size_t>(bh) * S * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = key0 + 8 * (c / 2), col = 8 * j + 2 * t + (c & 1);
+      if (key < S && col < D) {
+        const size_t i = off + static_cast<size_t>(key) * D + col;
+        Num<bf16>::store(dk + i, dk_acc[j][c] * scale);
+        Num<bf16>::store(dv + i, dv_acc[j][c]);
+      }
+    }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -482,33 +820,95 @@ int run_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// which: 0 forward, 1 dq, 2 dk/dv. Tiles by padded head dim: DP 64 with
-// BQ = BK = 64 (or BQ = 48 in float32, tiles that do not divide each
-// other), DP 128 with 64/64, DP 256 with 32/32 (dk/dv in two column halves).
+template <int DP, int NW, int BKT>
+int run_dq_mma(const Args& a, bool vec) {
+  const size_t smem = DqMmaSmem<DP, NW, BKT>::bytes;
+  auto kernel = vec ? flash_dq_mma_kernel<DP, NW, BKT, true>
+                    : flash_dq_mma_kernel<DP, NW, BKT, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + 16 * NW - 1) / (16 * NW), a.B * a.H);
+  kernel<<<grid, NW * 32, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.sq,
+      a.sk, a.sv, a.sdo, a.lse_in, a.delta, static_cast<bf16*>(a.dq), a.H,
+      a.S, a.D, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP, int NW, int BQT>
+int run_dkv_mma(const Args& a, bool vec) {
+  const size_t smem = DkvMmaSmem<DP, NW, BQT>::bytes;
+  auto kernel = vec ? flash_dkv_mma_kernel<DP, NW, BQT, true>
+                    : flash_dkv_mma_kernel<DP, NW, BQT, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + 16 * NW - 1) / (16 * NW), a.B * a.H);
+  kernel<<<grid, NW * 32, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.sq,
+      a.sk, a.sv, a.sdo, a.lse_in, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.H, a.S, a.D, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The bf16 backward with D <= 128 on the tensor cores, 4 warps a block
+// (64 rows of the block's own side). DP 64: dq and dk/dv stream tiles of
+// 64; DP 128: tiles of 32, as the f32 accumulators of 128 columns leave
+// room for half the score tile (no spills). Chosen by timing the
+// candidates at (8, 8, 4096, 64|128) bf16 on an H100: 8 warps a block,
+// or tiles of 128 or 16, were slower or spilled. 16-byte cp.async loads
+// where every pointer is 16-byte aligned and every stride and D a
+// multiple of 8 elements; element copies otherwise.
+int dispatch_mma(int which, const Args& a) {
+  bool vec = a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) &&
+             aligned16(a.v) && aligned16(a.dout);
+  const Strides* all[4] = {&a.sq, &a.sk, &a.sv, &a.sdo};
+  for (const Strides* st : all)
+    vec = vec && st->b % 8 == 0 && st->h % 8 == 0 && st->s % 8 == 0;
+  if (a.D <= 64)
+    return which == 1 ? run_dq_mma<64, 4, 64>(a, vec)
+                      : run_dkv_mma<64, 4, 64>(a, vec);
+  return which == 1 ? run_dq_mma<128, 4, 32>(a, vec)
+                    : run_dkv_mma<128, 4, 32>(a, vec);
+}
+
+// The FMA kernels at one tile shape. bf16 dq and dk/dv with DP <= 128 run
+// on the tensor cores and are not built here.
+template <typename T, int DP, int BQ, int BK, int NSPLIT>
+int run_fma(int which, const Args& a) {
+  if (which == 0) return run_fwd<T, DP, BQ, BK>(a);
+  if constexpr (std::is_same<T, bf16>::value && DP <= 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (which == 1) return run_dq<T, DP, BQ, BK>(a);
+    return run_dkv<T, DP, BQ, BK, NSPLIT>(a);
+  }
+}
+
+// which: 0 forward, 1 dq, 2 dk/dv. bf16 dq and dk/dv with D <= 128 go to
+// the tensor-core kernels (dispatch_mma). Every other case runs the FMA
+// kernels, tiles by padded head dim: DP 64 with BQ = BK = 64 (or BQ = 48
+// in float32, tiles that do not divide each other), DP 128 with 64/64,
+// DP 256 with 32/32 (dk/dv in two column halves).
 template <typename T>
 int dispatch(int which, int block_q, const Args& a) {
+  if (block_q != 64 && !(block_q == 48 && a.D <= 64 &&
+                         std::is_same<T, float>::value))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (std::is_same<T, bf16>::value && which != 0 && a.D <= 128)
+    return dispatch_mma(which, a);
   if (a.D <= 64) {
-    if (block_q == 48) {
-      if (!std::is_same<T, float>::value) return static_cast<int>(cudaErrorInvalidValue);
-      if (which == 0) return run_fwd<T, 64, 48, 64>(a);
-      if (which == 1) return run_dq<T, 64, 48, 64>(a);
-      return run_dkv<T, 64, 48, 64, 1>(a);
-    }
-    if (which == 0) return run_fwd<T, 64, 64, 64>(a);
-    if (which == 1) return run_dq<T, 64, 64, 64>(a);
-    return run_dkv<T, 64, 64, 64, 1>(a);
+    if constexpr (std::is_same<T, float>::value)
+      if (block_q == 48) return run_fma<T, 64, 48, 64, 1>(which, a);
+    return run_fma<T, 64, 64, 64, 1>(which, a);
   }
-  if (block_q != 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (a.D <= 128) {
-    if (which == 0) return run_fwd<T, 128, 64, 64>(a);
-    if (which == 1) return run_dq<T, 128, 64, 64>(a);
-    return run_dkv<T, 128, 64, 64, 1>(a);
-  }
-  if (a.D <= 256) {
-    if (which == 0) return run_fwd<T, 256, 32, 32>(a);
-    if (which == 1) return run_dq<T, 256, 32, 32>(a);
-    return run_dkv<T, 256, 32, 32, 2>(a);
-  }
+  if (a.D <= 128) return run_fma<T, 128, 64, 64, 1>(which, a);
+  if (a.D <= 256) return run_fma<T, 256, 32, 32, 2>(which, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,7 +1,9 @@
 // Loads and stores of the port's two kernel dtypes through f32.
 //
-// Every kernel of csrc/ computes in f32 and reads and writes its tensors
-// in float32 or bfloat16; Num<T> is the one place that converts.
+// Every kernel of csrc/ computes in f32 (the tensor-core kernels
+// accumulate their bf16 products in f32) and reads and writes its tensors
+// in float32 or bfloat16; Num<T> converts single values, mma_tiles.cuh
+// the bf16 pairs of the tensor-core fragments.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -10,7 +10,10 @@ per q tile and one per k tile: no atomics, the same sums on every run.
 
 Each of the three wrappers takes its plain version only for CPU tensors;
 for CUDA tensors it launches its kernel or raises. Their `.launches`
-count the calls that launched. The kernels take the inputs' b/h/s
+count the calls that launched. In bf16 with D <= 128 (`MMA_D_MAX`) dq
+and dk/dv run on the tensor cores and round p and ds to bf16 where they
+enter a product; `.tensor_core_launches` counts those launches, and the
+plain versions round at the same places (float32 and D > 128 keep f32). The kernels take the inputs' b/h/s
 strides (unit D stride), so the split heads of a projection are passed
 without a copy. The JAX block-size fitting (`_fit_block`,
 `DEFAULT_BLOCK_*`, `DKV_BLOCK_CAP`) tunes TPU VMEM and has no
@@ -28,6 +31,7 @@ from ghost_tpu_torch.ops.cuda._build import load_library
 
 NEG_INF = -1e30
 D_MAX = 256
+MMA_D_MAX = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -80,9 +84,23 @@ def _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale):
     return p, p * (dp - delta.reshape(*q.shape[:3], 1))
 
 
+def on_tensor_cores(q):
+    """Whether dq and dk/dv of these inputs run on the bf16 tensor cores."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] <= MMA_D_MAX
+
+
+def _product_operands(q, *ts):
+    """p and ds as the backward kernels feed them to their products:
+    rounded to bf16 on the tensor cores, f32 otherwise."""
+    if not on_tensor_cores(q):
+        return ts
+    return tuple(t.to(torch.bfloat16).float() for t in ts)
+
+
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale):
     """The dq kernel's function."""
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale)
+    (ds,) = _product_operands(q, ds)
     return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
             * sm_scale).to(q.dtype)
 
@@ -90,6 +108,7 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale):
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale):
     """The dk/dv kernel's function."""
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale)
+    p, ds = _product_operands(q, p, ds)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -203,6 +222,7 @@ def _dq_launch(q, k, v, do, lse, delta, causal, sm_scale, block_q):
              ctypes.addressof(strides), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr()), causal, sm_scale)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.tensor_core_launches += on_tensor_cores(q)
     return dq
 
 
@@ -215,6 +235,7 @@ def _dkv_launch(q, k, v, do, lse, delta, causal, sm_scale, block_q):
              ctypes.addressof(strides), lse.data_ptr(), delta.data_ptr(),
              dk.data_ptr(), dv.data_ptr()), causal, sm_scale)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.tensor_core_launches += on_tensor_cores(q)
     return dk, dv
 
 
@@ -254,7 +275,8 @@ def _flash_attention_tiles(q, k, v, do, causal, block_q):
     """The three kernels on card tensors with q tiles of `block_q` rows
     (64, or 48 for float32 with D <= 64) against k tiles of 64:
     (out, lse, delta, dq, dk, dv). Tiles of 48 do not divide those of
-    64, which checks the causal loop bounds; the wrappers use 64."""
+    64, which checks the causal loop bounds; the wrappers use 64. The
+    tensor-core dq and dk/dv pick their own tiles (block_q 64)."""
     _on_card(q, "_flash_attention_tiles")
     sm_scale = _scale(q, None)
     out, lse = _fwd_launch(q, k, v, causal, sm_scale, block_q)
@@ -266,6 +288,8 @@ def _flash_attention_tiles(q, k, v, do, causal, block_q):
 flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.tensor_core_launches = 0
+flash_attention_bwd_dkv.tensor_core_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -7,8 +7,13 @@ mode with 128/128 blocks (tests/test_pallas_kernels.py:89-118). Bounds:
 f32 1e-4 absolute and relative: both sides compute in f32 from the same
 inputs and differ only in the order of the sums (O(1) values, S <= 640
 terms); bf16 outputs within one bf16 ulp of the JAX reference (both
-round an f32 result once). On the card the kernels sum in yet another
-order (tiles of 64): f32 2e-4, bf16 outputs two ulps plus 2e-3.
+round an f32 result once). In bf16 with D <= 128 the backward rounds
+p and ds to bf16 where they enter a product (the tensor-core kernels
+and their plain versions alike); its bound against the JAX kernel's f32
+gradients is derived term by term in `test_bf16_plain_grads_match_jax`.
+On the card the kernels sum in yet another order (tiles of 64 or 32):
+f32 2e-4, bf16 outputs two ulps plus 2e-3, against the plain versions
+that round where the kernels round.
 
 The JAX twins are imported inside the tests that use them, so the card
 tests run where jax is not installed:
@@ -20,11 +25,11 @@ import pytest
 import torch
 
 from ghost_tpu_torch.ops.cuda.attention import (
-    _check, _flash_attention_tiles, flash_attention, flash_attention_bwd_dkv,
-    flash_attention_bwd_dq, flash_attention_bwd_dkv_plain,
-    flash_attention_bwd_dq_plain,
+    _check, _flash_attention_tiles, _probs_and_ds, flash_attention,
+    flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_bwd_dkv_plain, flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
-    flash_attention_plain, attention_delta)
+    flash_attention_plain, attention_delta, on_tensor_cores)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -120,6 +125,89 @@ def test_grads_match_jax_kernel(causal, shape):
             flash_attention_bwd_dkv.launches) == before
 
 
+def _as_bf16_values(a):
+    """a rounded to bf16 values, kept in f32 (so JAX runs f32 on them)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def test_bf16_plain_grads_match_jax():
+    """The port's bf16 backward on the CPU (the plain versions, which
+    round p and ds to bf16 as the tensor-core kernels do) against the JAX
+    kernel's f32 gradients of the same bf16 values, causal. Bound per
+    output element, from the f64 softmax terms: each p or ds term is
+    rounded to bf16 (8 significant bits: relative error 2^-9, taken as
+    2^-8) before a sum of S terms, so the sum moves by at most 2^-8 times
+    the sum of the terms' magnitudes; delta = rowsum(dO O) comes from the
+    bf16 O, which moves each ds by p |delta error|; and the output is
+    rounded to bf16 once more (2^-8 |ref|). 1e-5 covers the f32 sums."""
+    import jax
+    import jax.numpy as jnp
+
+    from ghost_tpu.ops.pallas.attention import flash_attention as j_flash
+
+    shape, causal = (1, 2, 256, 64), True
+    q, k, v = (_as_bf16_values(a) for a in _qkv(21, shape))
+    do = _as_bf16_values(_qkv(22, shape)[0])
+
+    def fwd(q, k, v):
+        return j_flash(q, k, v, causal, None, 128, 128, True)
+
+    _, vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+                  for a in (q, k, v))
+    assert on_tensor_cores(tq)
+    flash_attention(tq, tk, tv, causal).backward(
+        torch.from_numpy(do).to(torch.bfloat16))
+
+    qd, kd, vd, dod = (a.astype(np.float64)[0] for a in (q, k, v, do))
+    scale = shape[-1] ** -0.5
+    s = np.where(np.tril(np.ones(shape[2:3] * 2, bool)),
+                 qd @ kd.transpose(0, 2, 1) * scale, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    o = p @ vd
+    ds = p * (dod @ vd.transpose(0, 2, 1)
+              - (dod * o).sum(-1, keepdims=True))
+    e_delta = 2.0 ** -8 * (np.abs(dod) * np.abs(o)).sum(-1, keepdims=True)
+    e_ds = 2.0 ** -8 * np.abs(ds) + p * e_delta
+    bounds = (scale * e_ds @ np.abs(kd),
+              scale * e_ds.transpose(0, 2, 1) @ np.abs(qd),
+              2.0 ** -8 * p.transpose(0, 2, 1) @ np.abs(dod))
+    for name, got, want, bound in zip(("dq", "dk", "dv"),
+                                      (tq.grad, tk.grad, tv.grad), ref,
+                                      bounds):
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy()[0] - want[0])
+        lim = bound + 2.0 ** -8 * np.abs(want[0]) + 1e-5
+        assert (err <= lim).all(), (name, float(err.max()),
+                                    float((err / lim).max()))
+
+
+@pytest.mark.parametrize("dtype,dim,rounded", [
+    ("float32", 32, False), ("bfloat16", 32, True), ("bfloat16", 160, False)])
+def test_plain_backward_rounds_only_for_tensor_cores(dtype, dim, rounded):
+    """The plain dq and dk/dv are the products of `_probs_and_ds`'s f32 p
+    and ds, bit for bit: as they are in float32 and for D > 128 (the FMA
+    kernels), rounded to bf16 first in bf16 with D <= 128 (the
+    tensor-core kernels)."""
+    td = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(a).to(td)
+                   for a in _qkv(5, (1, 2, 96, dim)) + _qkv(6, (1, 2, 96, dim))[:1])
+    out, lse = flash_attention_fwd_plain(q, k, v, True)
+    args = (q, k, v, do, lse, attention_delta(out, do), True, dim ** -0.5)
+    p, ds = _probs_and_ds(*args)
+    assert on_tensor_cores(q) == rounded
+    if rounded:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * args[-1]).to(td)
+    dk = (torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * args[-1]).to(td)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float()).to(td)
+    assert torch.equal(flash_attention_bwd_dq_plain(*args), dq)
+    got_dk, got_dv = flash_attention_bwd_dkv_plain(*args)
+    assert torch.equal(got_dk, dk) and torch.equal(got_dv, dv)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_bwd_plain_matches_autograd_of_plain(causal):
     q, k, v = _qkv(3, (2, 2, 96, 16))
@@ -168,7 +256,10 @@ def test_kernels_check_what_they_take():
 # (shape, causal, dtype, block_q): the JAX tests' shapes, a ragged S
 # (200), head dims 16 and 256 (padded tiles, split dk/dv) and S=2560
 # causal with q tiles of 48 against k tiles of 64 (neither divides the
-# other: the causal-bound bug of tests/test_pallas_kernels.py:57-86)
+# other: the causal-bound bug of tests/test_pallas_kernels.py:57-86);
+# in bf16 the tensor-core dq and dk/dv at S=1000 (no multiple of any
+# tile), D=128, D=36 (element copies: D % 8 != 0) and D=256 (the FMA
+# kernels)
 CARD_CASES = [
     ((1, 2, 256, 64), False, "float32", 64),
     ((1, 2, 256, 64), True, "float32", 64),
@@ -177,6 +268,12 @@ CARD_CASES = [
     ((1, 2, 192, 256), False, "float32", 64),
     ((1, 1, 2560, 64), True, "float32", 48),
     ((2, 2, 640, 64), True, "bfloat16", 64),
+    ((2, 3, 1000, 64), False, "bfloat16", 64),
+    ((2, 3, 1000, 64), True, "bfloat16", 64),
+    ((1, 2, 384, 128), False, "bfloat16", 64),
+    ((1, 2, 384, 128), True, "bfloat16", 64),
+    ((1, 2, 136, 36), True, "bfloat16", 64),
+    ((1, 2, 192, 256), True, "bfloat16", 64),
 ]
 
 
@@ -192,6 +289,7 @@ def test_kernels_match_plain_on_card(shape, causal, dtype, block_q):
     q, k, v = (torch.from_numpy(a).cuda().to(td)
                for a in _qkv(1, shape, 0.5))
     do = torch.from_numpy(_qkv(2, shape)[0]).cuda().to(td)
+    before = flash_attention_bwd_dq.tensor_core_launches
     if block_q == 64:  # the wrappers' own tiles
         out, lse = flash_attention_fwd(q, k, v, causal)
         delta = attention_delta(out, do)
@@ -200,19 +298,74 @@ def test_kernels_match_plain_on_card(shape, causal, dtype, block_q):
     else:
         out, lse, delta, dq, dk, dv = _flash_attention_tiles(q, k, v, do,
                                                              causal, block_q)
+    # bf16 with D <= 128 on the tensor cores, all else on the FMA kernels
+    assert (flash_attention_bwd_dq.tensor_core_launches - before
+            == int(on_tensor_cores(q)))
+    _hold_to_plain(q, k, v, do, causal, (out, lse, delta, dq, dk, dv))
+
+
+def _hold_to_plain(q, k, v, do, causal, results):
+    """The kernels' (out, lse, delta, dq, dk, dv) against the plain
+    versions on the same inputs (the backward from the kernels' lse and
+    delta): f32 2e-4 absolute and relative, bf16 two ulps plus 2e-3."""
+    out, lse, delta, dq, dk, dv = results
     ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
     torch.cuda.synchronize()
     # each backward kernel against its plain version on the same inputs
-    args = (q, k, v, do, lse, delta, causal, 1 / shape[-1] ** 0.5)
+    args = (q, k, v, do, lse, delta, causal, 1 / q.shape[-1] ** 0.5)
     want = (flash_attention_bwd_dq_plain(*args),
             *flash_attention_bwd_dkv_plain(*args))
     for name, got, exp in (("out", out, ref), ("lse", lse, ref_lse),
                            ("dq", dq, want[0]), ("dk", dk, want[1]),
                            ("dv", dv, want[2])):
         got, exp = got.float().cpu().numpy(), exp.float().cpu().numpy()
-        if dtype == "bfloat16" and name != "lse":
+        if q.dtype == torch.bfloat16 and name != "lse":
             bound = _bf16_ulp(exp) * 2 + 2e-3
         else:
             bound = 2e-4 + 2e-4 * np.abs(exp)
         assert (np.abs(got - exp) <= bound).all(), \
             (name, float(np.abs(got - exp).max()))
+
+
+def _card_bf16(seed, shape):
+    return torch.from_numpy(_qkv(seed, shape, 0.5)[0]).cuda().to(
+        torch.bfloat16)
+
+
+def _run_kernels(q, k, v, do, causal):
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    delta = attention_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    return (out, lse, delta, dq,
+            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_split_heads_on_card(causal):
+    """q, k, v and dO as the split heads of (B, S, H*D) projections (no
+    copy: strides (S*H*D, D, H*D, 1)) on the tensor-core kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    b, s, h, d = 2, 320, 4, 64
+    q, k, v, do = (_card_bf16(i, (b, s, h * d)).view(b, s, h, d)
+                   .transpose(1, 2) for i in range(4))
+    assert q.stride() == (s * h * d, d, h * d, 1)
+    before = flash_attention_bwd_dkv.tensor_core_launches
+    results = _run_kernels(q, k, v, do, causal)
+    assert flash_attention_bwd_dkv.tensor_core_launches == before + 1
+    _hold_to_plain(q, k, v, do, causal, results)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [64, 128])
+def test_bf16_backward_is_deterministic_on_card(dim):
+    """No atomics: two backward calls on the same inputs give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do = (_card_bf16(i, (2, 3, 1000, dim)) for i in range(4))
+    first = _run_kernels(q, k, v, do, True)
+    second = _run_kernels(q, k, v, do, True)
+    for a, b in zip(first[3:], second[3:]):
+        assert torch.equal(a, b)
