@@ -17,43 +17,44 @@
 // and never NaN.
 //
 // Two families of kernels:
-//   FMA          the forward in both dtypes, and dq and dk/dv in float32
-//                and for bf16 with 128 < D <= 256. All arithmetic is f32
-//                on the CUDA cores (67 TFLOP/s at most): inputs are
-//                upcast when they are staged in shared memory, each
-//                thread computes a 4 x 4 tile of scores from float4
-//                reads of transposed tiles, outputs are cast to the
-//                inputs' dtypes.
-//   tensor core  dq and dk/dv in bf16 with D <= 128 (flash_dq_mma_kernel,
-//                flash_dkv_mma_kernel): every product on the bf16 tensor
-//                cores through mma.sync m16n8k16 (mma_tiles.cuh), with
-//                f32 accumulators. p and ds are formed in f32 and rounded
-//                to bf16 where they enter a product (dq += ds k, dv +=
-//                p^T dO, dk += ds^T q), as FlashAttention-2 does; the
-//                plain versions round at the same places. p is taken as
-//                exp2(s scale log2(e) - lse log2(e)), one FMA and the
-//                hardware exp2 per score. 128 < D <= 256
-//                stays on the FMA kernels: its f32 dk and dv accumulators
-//                alone would fill a warp's registers.
+//   FMA          every kernel in float32, and dq and dk/dv for the 16-bit
+//                types with 128 < D <= 256. All arithmetic is f32 on the
+//                CUDA cores (67 TFLOP/s at most): inputs are upcast when
+//                they are staged in shared memory, each thread computes a
+//                4 x 4 tile of scores from float4 reads of transposed
+//                tiles, outputs are cast to the inputs' dtypes.
+//   tensor core  bf16 and float16 (T): the forward with D <= 256
+//                (flash_fwd_mma_kernel), dq and dk/dv with D <= 128
+//                (flash_dq_mma_kernel, flash_dkv_mma_kernel): every
+//                product on the tensor cores through mma.sync m16n8k16
+//                (mma_tiles.cuh), with f32 accumulators. p and ds are
+//                formed in f32 and rounded to T where they enter a
+//                product (o += p v, dq += ds k, dv += p^T dO, dk += ds^T
+//                q), as FlashAttention-2 does; the plain versions round
+//                at the same places. p is taken as a power of 2 (one FMA
+//                and the hardware exp2 per score). 128 < D <= 256 keeps
+//                dq and dk/dv on the FMA kernels: the f32 dk and dv
+//                accumulators alone would fill a warp's registers.
 //
 // Bound: at (B, H, S, D) = (8, 8, 4096, 64) the forward is two products of
 // 4 B H S^2 D = 2.75e11 flops (half that causal) and the backward's least
 // work five, 6.9e11: on the tensor cores (989 TFLOP/s bf16) 0.28 and
 // 0.69 ms, against ~4 MB of q/k/v/o per head group. The work is bound by
-// operations, hence the tensor cores; dq recomputes s and dp (7 products
+// operations, hence the tensor cores (on f32 FMAs the bf16 forward took
+// 40x its bound); dq recomputes s and dp (7 products
 // in all, as in the JAX kernels) so that no kernel needs atomics and the
 // outputs are the same bits on every run.
 //
 // Tiles: a block owns BQ query rows (fwd, dq) or BK key rows (dkv) and
 // loops over the other side in tiles. FMA: (BQ/4) x (BK/4) threads, D
-// padded with zeros to DP in {64, 128, 256}. Tensor core: 16 rows per
-// warp, D padded to DP in {64, 128}, the streamed tiles in a two-stage
-// cp.async ring (see dispatch_mma). The causal loop bounds are those of
-// the JAX kernels: k tiles up to cdiv of the EXCLUSIVE row end (q0 + BQ),
-// capped at the tile count; in dkv q tiles from floor(k0 / BQ). Both hold
-// for tiles that do not divide each other (FMA BQ = 48 with BK = 64 is
-// built for that check). Rows and columns past S are masked, so any S
-// works.
+// padded with zeros to DP in {64, 128, 256}. Tensor core: 16 rows (or
+// 32) per warp, D padded to DP in {64, 128, 256}, the streamed tiles in a
+// two-stage cp.async ring (see dispatch_mma). The causal loop bounds are
+// those of the JAX kernels: k tiles up to cdiv of the EXCLUSIVE row end
+// (q0 + BQ), capped at the tile count; in dkv q tiles from floor(k0 /
+// BQ). Both hold for tiles that do not divide each other (FMA BQ = 48
+// with BK = 64 is built for that check). Rows and columns past S are
+// masked, so any S works.
 //
 // Inputs are (B, H, S, D) views with unit D stride and any b/h/s strides
 // (the split heads of a (B, S, H*D) projection need no copy); outputs
@@ -70,8 +71,11 @@
 
 namespace {
 
+using mma_tiles::bf16;
+
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;
@@ -441,51 +445,258 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dq and dk/dv on the tensor cores (D <= 128)
+// 16-bit (bf16, f16) forward, dq and dk/dv on the tensor cores (D <= 128)
 // ---------------------------------------------------------------------------
 //
-// Every product is mma.sync m16n8k16 (bf16 in, f32 accumulate). Each warp
-// owns 16 rows of the block's tile: q rows in dq, key rows in dk/dv. The
-// block's own tiles stay in shared memory as bf16; the streamed tiles go
-// through a two-stage cp.async ring, tile j + 1 loading while tile j
-// computes. The scores and dP stay in registers: p and ds are formed in
-// f32, rounded to bf16 and packed straight into A fragments (pack_a) for
-// dq += ds k, dv += p^T dO and dk += ds^T q, so neither goes through
-// shared memory, and one barrier per streamed tile frees its stage.
+// Every product is mma.sync m16n8k16 (T = bf16 or half in, f32
+// accumulate). Each warp owns 16 rows of the block's tile: q rows in the
+// forward and dq, key rows in dk/dv. The block's own tiles stay in shared
+// memory as T; the streamed tiles go through a two-stage cp.async ring,
+// tile j + 1 loading while tile j computes. The scores and dP stay in
+// registers: p and ds are formed in f32, rounded to T and packed straight
+// into A fragments (pack_a) for o += p v, dq += ds k, dv += p^T dO and
+// dk += ds^T q, so neither goes through shared memory, and one barrier
+// per streamed tile frees its stage.
 
-using mma_tiles::bf16;
+template <int DP, int BQ, int BKT>
+struct FwdMmaSmem {
+  static constexpr size_t bytes = (BQ + 4 * BKT) * (DP + 8) * 2;
+};
+
+// Grid (ceil(S / BQ), B * H), BQ = 16 MT NW: q tiles in reverse, so the
+// longest causal rows start first. Each warp owns MT m16 row tiles, so
+// every K and V fragment it reads from shared memory feeds MT products.
+// Streams K and V tiles of BKT keys (FlashAttention-2's forward): per
+// tile s = q k^T on the tensor cores, the online softmax in registers in
+// powers of 2 (x = s scale log2(e), running row max m, each lane's
+// partial row sum l over its columns, the quad's four lanes sharing a
+// row), p = exp2(x - m) (the hardware's ex2, subnormals flushed: ~6%
+// faster than exp2f at (8, 8, 4096, 64) on an H100) rounded to T into
+// the A fragment of o += p v.
+// Causal blocks stop at the diagonal tile, and only tiles that cross the
+// diagonal or S are masked. A masked entry is -1e30: a row whose entries
+// so far are all masked has m = -1e30 and p = 1 on them, which the first
+// unmasked entry scales away (alpha = 0); every row < S has one in its
+// first tile (column 0), so no row sees NaN.
+template <typename T, int DP, int NW, int MT, int BKT, bool VEC>
+__global__ void __launch_bounds__(NW * 32)
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, Strides sq, Strides sk,
+                     Strides sv, T* __restrict__ o, float* __restrict__ lse,
+                     int H, int S, int D, float scale, int causal) {
+  using namespace mma_tiles;
+  constexpr int BQ = 16 * MT * NW, NT = 32 * NW, LD = DP + 8;
+  constexpr int NK = BKT / 8, ND = DP / 8;
+  extern __shared__ float4 smem4[];
+  T* qS = reinterpret_cast<T*>(smem4);  // [BQ][LD]
+  T* kS = qS + BQ * LD;                 // [2][BKT][LD]
+  T* vS = kS + 2 * BKT * LD;            // [2][BKT][LD]
+
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const T* qb = q + b * sq.b + hh * sq.h;
+  const T* kb = k + b * sk.b + hh * sk.h;
+  const T* vb = v + b * sv.b + hh * sv.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const LaneOffsets lo(lane);
+
+  const int n_kt = (S + BKT - 1) / BKT;
+  const int upper = causal ? min((q0 + BQ + BKT - 1) / BKT, n_kt) : n_kt;
+  load_tile<BQ, DP, NT, VEC>(qS, qb, sq.s, q0, S, D);
+  load_tile<BKT, DP, NT, VEC>(kS, kb, sk.s, 0, S, D);
+  load_tile<BKT, DP, NT, VEC>(vS, vb, sv.s, 0, S, D);
+  cp_async_commit();
+
+  // this lane's rows: g and g + 8 of each of the warp's MT row tiles
+  int row[MT][2];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      row[mt][h2] = q0 + (warp * MT + mt) * 16 + g + 8 * h2;
+      m[mt][h2] = kNegInf;
+      l[mt][h2] = 0.f;
+    }
+  const float scale2 = scale * kLog2e;
+  float acc[MT][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][j][c] = 0.f;
+
+  const T* qW = qS + warp * MT * 16 * LD;
+  for (int kt = 0; kt < upper; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < upper) {
+      load_tile<BKT, DP, NT, VEC>(kS + (st ^ 1) * BKT * LD, kb, sk.s,
+                                  (kt + 1) * BKT, S, D);
+      load_tile<BKT, DP, NT, VEC>(vS + (st ^ 1) * BKT * LD, vb, sv.s,
+                                  (kt + 1) * BKT, S, D);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* kT = kS + st * BKT * LD;
+    const T* vT = vS + st * BKT * LD;
+
+    // s = q k^T, (16 MT x BKT) per warp
+    float s[MT][NK][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[mt][j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(aq[mt], qW + (mt * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
+#pragma unroll
+      for (int nj = 0; nj < BKT / 16; ++nj) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16<T>(s[mt][2 * nj], aq[mt], bk[0], bk[1]);
+          mma16<T>(s[mt][2 * nj + 1], aq[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // the online softmax in powers of 2; masks only where the tile
+    // crosses S or the diagonal
+    const int k0 = kt * BKT;
+    const bool mask = k0 + BKT > S || (causal && k0 + BKT - 1 > q0);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float x = s[mt][j][c] * scale2;
+          if (mask) {
+            const int col = k0 + 8 * j + 2 * t + (c & 1);
+            if (col >= S || (causal && col > row[mt][c / 2])) x = kNegInf;
+          }
+          s[mt][j][c] = x;
+          mx[c / 2] = fmaxf(mx[c / 2], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+        mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+        const float mn = fmaxf(m[mt][h2], mx[h2]);
+        alpha[h2] = exp2_ftz(m[mt][h2] - mn);
+        m[mt][h2] = mn;
+        l[mt][h2] *= alpha[h2];
+      }
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][j][c] *= alpha[c / 2];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float p = exp2_ftz(s[mt][j][c] - m[mt][c / 2]);
+          s[mt][j][c] = p;
+          l[mt][c / 2] += p;
+        }
+    }
+
+    // o += p v: p (16 MT x BKT) from registers, v through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk) {
+      uint32_t ap[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        pack_a<T>(ap[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < DP / 16; ++dn) {
+        uint32_t bv[4];
+        const int off = (kk * 16 + lo.bk_row) * LD + dn * 16 + lo.bk_col;
+        ldsm_x4_trans(bv, vT + off);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16<T>(acc[mt][2 * dn], ap[mt], bv[0], bv[1]);
+          mma16<T>(acc[mt][2 * dn + 1], ap[mt], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed: the next load may fill it
+  }
+
+  // o = acc / l and lse = m ln(2) + ln(l), l summed over the quad
+  T* out = o + static_cast<size_t>(bh) * S * D;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float ll = l[mt][h2];
+      ll += __shfl_xor_sync(0xffffffffu, ll, 1);
+      ll += __shfl_xor_sync(0xffffffffu, ll, 2);
+      ll = fmaxf(ll, 1e-30f);
+      const float inv = 1.f / ll;
+      const int r = row[mt][h2];
+      if (r >= S) continue;
+      if (t == 0)
+        lse[static_cast<size_t>(bh) * S + r] = m[mt][h2] * kLn2 + logf(ll);
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col >= D) continue;
+        const float a0 = acc[mt][j][2 * h2] * inv;
+        const float a1 = acc[mt][j][2 * h2 + 1] * inv;
+        T* p = out + static_cast<size_t>(r) * D + col;
+        if (D % 2 == 0) {  // col + 1 < D: one 4-byte store
+          *reinterpret_cast<uint32_t*>(p) = pack2<T>(a0, a1);
+        } else {
+          Num<T>::store(p, a0);
+          if (col + 1 < D) Num<T>::store(p + 1, a1);
+        }
+      }
+    }
+}
 
 template <int DP, int NW, int BKT>
 struct DqMmaSmem {
   static constexpr size_t bytes =
-      (2 * 16 * NW + 4 * BKT) * (DP + 8) * sizeof(bf16);
+      (2 * 16 * NW + 4 * BKT) * (DP + 8) * 2;
 };
 
 // Grid (ceil(S / BQ), B * H), BQ = 16 NW: q tiles in reverse, so the
 // longest causal rows start first. Streams K and V tiles of BKT keys.
-template <int DP, int NW, int BKT, bool VEC>
+template <typename T, int DP, int NW, int BKT, bool VEC>
 __global__ void __launch_bounds__(NW * 32)
-flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     Strides sq, Strides sk, Strides sv, Strides sdo,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int S, int D, float scale, int causal) {
   using namespace mma_tiles;
   constexpr int BQ = 16 * NW, NT = 32 * NW, LD = DP + 8;
   constexpr int NK = BKT / 8, ND = DP / 8;
   extern __shared__ float4 smem4[];
-  bf16* qS = reinterpret_cast<bf16*>(smem4);  // [BQ][LD]
-  bf16* doS = qS + BQ * LD;                   // [BQ][LD]
-  bf16* kS = doS + BQ * LD;                   // [2][BKT][LD]
-  bf16* vS = kS + 2 * BKT * LD;               // [2][BKT][LD]
+  T* qS = reinterpret_cast<T*>(smem4);  // [BQ][LD]
+  T* doS = qS + BQ * LD;                   // [BQ][LD]
+  T* kS = doS + BQ * LD;                   // [2][BKT][LD]
+  T* vS = kS + 2 * BKT * LD;               // [2][BKT][LD]
 
   const int bh = blockIdx.y, b = bh / H, hh = bh % H;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const bf16* qb = q + b * sq.b + hh * sq.h;
-  const bf16* kb = k + b * sk.b + hh * sk.h;
-  const bf16* vb = v + b * sv.b + hh * sv.h;
-  const bf16* dob = dout + b * sdo.b + hh * sdo.h;
+  const T* qb = q + b * sq.b + hh * sq.h;
+  const T* kb = k + b * sk.b + hh * sk.h;
+  const T* vb = v + b * sv.b + hh * sv.h;
+  const T* dob = dout + b * sdo.b + hh * sdo.h;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const LaneOffsets lo(lane);
@@ -516,8 +727,8 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
-  const bf16* qW = qS + warp * 16 * LD;
-  const bf16* doW = doS + warp * 16 * LD;
+  const T* qW = qS + warp * 16 * LD;
+  const T* doW = doS + warp * 16 * LD;
   for (int kt = 0; kt < upper; ++kt) {
     const int st = kt & 1;
     if (kt + 1 < upper) {
@@ -529,8 +740,8 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const bf16* kT = kS + st * BKT * LD;
-    const bf16* vT = vS + st * BKT * LD;
+    const T* kT = kS + st * BKT * LD;
+    const T* vT = vS + st * BKT * LD;
 
     // s = q k^T and dp = dO v^T, (16 x BKT) per warp
     float s[NK][4], dp[NK][4];
@@ -548,10 +759,10 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[4], bv[4];
         ldsm_x4(bk, kT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
         ldsm_x4(bv, vT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
-        mma_bf16(s[2 * nj], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * nj + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[2 * nj], ado, bv[0], bv[1]);
-        mma_bf16(dp[2 * nj + 1], ado, bv[2], bv[3]);
+        mma16<T>(s[2 * nj], aq, bk[0], bk[1]);
+        mma16<T>(s[2 * nj + 1], aq, bk[2], bk[3]);
+        mma16<T>(dp[2 * nj], ado, bv[0], bv[1]);
+        mma16<T>(dp[2 * nj + 1], ado, bv[2], bv[3]);
       }
     }
 
@@ -573,27 +784,27 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BKT / 16; ++kk) {
       uint32_t ads[4];
-      pack_a(ads, dp[2 * kk], dp[2 * kk + 1]);
+      pack_a<T>(ads, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int dn = 0; dn < DP / 16; ++dn) {
         uint32_t bk[4];
         const int off = (kk * 16 + lo.bk_row) * LD + dn * 16 + lo.bk_col;
         ldsm_x4_trans(bk, kT + off);
-        mma_bf16(acc[2 * dn], ads, bk[0], bk[1]);
-        mma_bf16(acc[2 * dn + 1], ads, bk[2], bk[3]);
+        mma16<T>(acc[2 * dn], ads, bk[0], bk[1]);
+        mma16<T>(acc[2 * dn + 1], ads, bk[2], bk[3]);
       }
     }
     __syncthreads();  // this stage is consumed: the next load may fill it
   }
 
-  bf16* out = dq + static_cast<size_t>(bh) * S * D;
+  T* out = dq + static_cast<size_t>(bh) * S * D;
 #pragma unroll
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int r = row[c / 2], col = 8 * j + 2 * t + (c & 1);
       if (r < S && col < D)
-        Num<bf16>::store(out + static_cast<size_t>(r) * D + col,
+        Num<T>::store(out + static_cast<size_t>(r) * D + col,
                          acc[j][c] * scale);
     }
 }
@@ -601,7 +812,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DP, int NW, int BQT>
 struct DkvMmaSmem {
   static constexpr size_t bytes =
-      (2 * 16 * NW + 4 * BQT) * (DP + 8) * sizeof(bf16) +
+      (2 * 16 * NW + 4 * BQT) * (DP + 8) * 2 +
       4 * BQT * sizeof(float);
 };
 
@@ -609,32 +820,32 @@ struct DkvMmaSmem {
 // longest causal columns start first. Streams Q and dO tiles of BQT rows
 // with their lse and delta. The products run transposed: s^T = k q^T and
 // dp^T = v dO^T (keys are the rows), so p^T and ds^T are A fragments.
-template <int DP, int NW, int BQT, bool VEC>
+template <typename T, int DP, int NW, int BQT, bool VEC>
 __global__ void __launch_bounds__(NW * 32)
-flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, Strides sq, Strides sk,
+flash_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout, Strides sq, Strides sk,
                      Strides sv, Strides sdo, const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int S, int D, float scale,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int S, int D, float scale,
                      int causal) {
   using namespace mma_tiles;
   constexpr int BK = 16 * NW, NT = 32 * NW, LD = DP + 8;
   constexpr int NQ = BQT / 8, ND = DP / 8;
   extern __shared__ float4 smem4[];
-  bf16* kS = reinterpret_cast<bf16*>(smem4);  // [BK][LD]
-  bf16* vS = kS + BK * LD;                    // [BK][LD]
-  bf16* qS = vS + BK * LD;                    // [2][BQT][LD]
-  bf16* doS = qS + 2 * BQT * LD;              // [2][BQT][LD]
+  T* kS = reinterpret_cast<T*>(smem4);  // [BK][LD]
+  T* vS = kS + BK * LD;                    // [BK][LD]
+  T* qS = vS + BK * LD;                    // [2][BQT][LD]
+  T* doS = qS + 2 * BQT * LD;              // [2][BQT][LD]
   float* lseS = reinterpret_cast<float*>(doS + 2 * BQT * LD);  // [2][BQT]
   float* dltS = lseS + 2 * BQT;                                // [2][BQT]
 
   const int bh = blockIdx.y, b = bh / H, hh = bh % H;
   const int k0 = blockIdx.x * BK;
-  const bf16* qb = q + b * sq.b + hh * sq.h;
-  const bf16* kb = k + b * sk.b + hh * sk.h;
-  const bf16* vb = v + b * sv.b + hh * sv.h;
-  const bf16* dob = dout + b * sdo.b + hh * sdo.h;
+  const T* qb = q + b * sq.b + hh * sq.h;
+  const T* kb = k + b * sk.b + hh * sk.h;
+  const T* vb = v + b * sv.b + hh * sv.h;
+  const T* dob = dout + b * sdo.b + hh * sdo.h;
   const float* lseb = lse + static_cast<size_t>(bh) * S;
   const float* dltb = delta + static_cast<size_t>(bh) * S;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -668,16 +879,16 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
 
-  const bf16* kW = kS + warp * 16 * LD;
-  const bf16* vW = vS + warp * 16 * LD;
+  const T* kW = kS + warp * 16 * LD;
+  const T* vW = vS + warp * 16 * LD;
   for (int qt = lower; qt < n_qt; ++qt) {
     const int st = (qt - lower) & 1;
     if (qt + 1 < n_qt) load_stage(st ^ 1, (qt + 1) * BQT);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const bf16* qT = qS + st * BQT * LD;
-    const bf16* doT = doS + st * BQT * LD;
+    const T* qT = qS + st * BQT * LD;
+    const T* doT = doS + st * BQT * LD;
     const float* lseT = lseS + st * BQT;
     const float* dltT = dltS + st * BQT;
 
@@ -697,10 +908,10 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bq[4], bdo[4];
         ldsm_x4(bq, qT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
         ldsm_x4(bdo, doT + (nj * 16 + lo.bn_row) * LD + kk * 16 + lo.bn_col);
-        mma_bf16(s[2 * nj], ak, bq[0], bq[1]);
-        mma_bf16(s[2 * nj + 1], ak, bq[2], bq[3]);
-        mma_bf16(dp[2 * nj], av, bdo[0], bdo[1]);
-        mma_bf16(dp[2 * nj + 1], av, bdo[2], bdo[3]);
+        mma16<T>(s[2 * nj], ak, bq[0], bq[1]);
+        mma16<T>(s[2 * nj + 1], ak, bq[2], bq[3]);
+        mma16<T>(dp[2 * nj], av, bdo[0], bdo[1]);
+        mma16<T>(dp[2 * nj + 1], av, bdo[2], bdo[3]);
       }
     }
 
@@ -725,18 +936,18 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BQT / 16; ++kk) {
       uint32_t ap[4], ads[4];
-      pack_a(ap, s[2 * kk], s[2 * kk + 1]);
-      pack_a(ads, dp[2 * kk], dp[2 * kk + 1]);
+      pack_a<T>(ap, s[2 * kk], s[2 * kk + 1]);
+      pack_a<T>(ads, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int dn = 0; dn < DP / 16; ++dn) {
         uint32_t bdo[4], bq[4];
         const int off = (kk * 16 + lo.bk_row) * LD + dn * 16 + lo.bk_col;
         ldsm_x4_trans(bdo, doT + off);
         ldsm_x4_trans(bq, qT + off);
-        mma_bf16(dv_acc[2 * dn], ap, bdo[0], bdo[1]);
-        mma_bf16(dv_acc[2 * dn + 1], ap, bdo[2], bdo[3]);
-        mma_bf16(dk_acc[2 * dn], ads, bq[0], bq[1]);
-        mma_bf16(dk_acc[2 * dn + 1], ads, bq[2], bq[3]);
+        mma16<T>(dv_acc[2 * dn], ap, bdo[0], bdo[1]);
+        mma16<T>(dv_acc[2 * dn + 1], ap, bdo[2], bdo[3]);
+        mma16<T>(dk_acc[2 * dn], ads, bq[0], bq[1]);
+        mma16<T>(dk_acc[2 * dn + 1], ads, bq[2], bq[3]);
       }
     }
     __syncthreads();  // this stage is consumed: the next load may fill it
@@ -750,8 +961,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int key = key0 + 8 * (c / 2), col = 8 * j + 2 * t + (c & 1);
       if (key < S && col < D) {
         const size_t i = off + static_cast<size_t>(key) * D + col;
-        Num<bf16>::store(dk + i, dk_acc[j][c] * scale);
-        Num<bf16>::store(dv + i, dv_acc[j][c]);
+        Num<T>::store(dk + i, dk_acc[j][c] * scale);
+        Num<T>::store(dv + i, dv_acc[j][c]);
       }
     }
 }
@@ -820,35 +1031,51 @@ int run_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, int NW, int BKT>
+template <typename T, int DP, int NW, int MT, int BKT>
+int run_fwd_mma(const Args& a, bool vec) {
+  constexpr int BQ = 16 * MT * NW;
+  const size_t smem = FwdMmaSmem<DP, BQ, BKT>::bytes;
+  auto kernel = vec ? flash_fwd_mma_kernel<T, DP, NW, MT, BKT, true>
+                    : flash_fwd_mma_kernel<T, DP, NW, MT, BKT, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  kernel<<<grid, NW * 32, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.sq, a.sk, a.sv, static_cast<T*>(a.o),
+      a.lse_out, a.H, a.S, a.D, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP, int NW, int BKT>
 int run_dq_mma(const Args& a, bool vec) {
   const size_t smem = DqMmaSmem<DP, NW, BKT>::bytes;
-  auto kernel = vec ? flash_dq_mma_kernel<DP, NW, BKT, true>
-                    : flash_dq_mma_kernel<DP, NW, BKT, false>;
+  auto kernel = vec ? flash_dq_mma_kernel<T, DP, NW, BKT, true>
+                    : flash_dq_mma_kernel<T, DP, NW, BKT, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + 16 * NW - 1) / (16 * NW), a.B * a.H);
   kernel<<<grid, NW * 32, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.sq,
-      a.sk, a.sv, a.sdo, a.lse_in, a.delta, static_cast<bf16*>(a.dq), a.H,
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.sq,
+      a.sk, a.sv, a.sdo, a.lse_in, a.delta, static_cast<T*>(a.dq), a.H,
       a.S, a.D, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, int NW, int BQT>
+template <typename T, int DP, int NW, int BQT>
 int run_dkv_mma(const Args& a, bool vec) {
   const size_t smem = DkvMmaSmem<DP, NW, BQT>::bytes;
-  auto kernel = vec ? flash_dkv_mma_kernel<DP, NW, BQT, true>
-                    : flash_dkv_mma_kernel<DP, NW, BQT, false>;
+  auto kernel = vec ? flash_dkv_mma_kernel<T, DP, NW, BQT, true>
+                    : flash_dkv_mma_kernel<T, DP, NW, BQT, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + 16 * NW - 1) / (16 * NW), a.B * a.H);
   kernel<<<grid, NW * 32, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.sq,
-      a.sk, a.sv, a.sdo, a.lse_in, a.delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.H, a.S, a.D, a.scale, a.causal);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.sq,
+      a.sk, a.sv, a.sdo, a.lse_in, a.delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.H, a.S, a.D, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -856,33 +1083,54 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The bf16 backward with D <= 128 on the tensor cores, 4 warps a block
-// (64 rows of the block's own side). DP 64: dq and dk/dv stream tiles of
-// 64; DP 128: tiles of 32, as the f32 accumulators of 128 columns leave
-// room for half the score tile (no spills). Chosen by timing the
-// candidates at (8, 8, 4096, 64|128) bf16 on an H100: 8 warps a block,
-// or tiles of 128 or 16, were slower or spilled. 16-byte cp.async loads
-// where every pointer is 16-byte aligned and every stride and D a
-// multiple of 8 elements; element copies otherwise.
+// The largest head dims of the tensor-core kernels: the forward's f32
+// accumulator of DP columns and its score tile fit a thread's registers
+// up to DP 256 (tiles of 32 keys there); dk/dv keep two DP-column
+// accumulators, so the backward stops at 128.
+constexpr int kFwdMmaDMax = 256;
+constexpr int kBwdMmaDMax = 128;
+
+// The 16-bit kernels on the tensor cores, 4 warps a block. Forward: 2 row
+// tiles a warp (128 q rows a block) and tiles of 64 keys at DP 64; 1 row
+// tile (64 rows) with tiles of 64 keys at DP 128 and of 32 at DP 256.
+// Backward: 64 rows a block; DP 64 streams tiles of 64, DP 128 tiles of
+// 32, as the f32 accumulators of 128 columns leave room for half the
+// score tile (no spills). Both were chosen by timing the candidates at
+// (8, 8, 4096, 64|128) bf16 on an H100: more warps, more row tiles or
+// other key tiles were slower or spilled. 16-byte cp.async loads where every
+// pointer is 16-byte aligned and every stride and D a multiple of 8
+// elements; element copies otherwise.
+template <typename T>
 int dispatch_mma(int which, const Args& a) {
   bool vec = a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) &&
-             aligned16(a.v) && aligned16(a.dout);
+             aligned16(a.v) && (which == 0 || aligned16(a.dout));
   const Strides* all[4] = {&a.sq, &a.sk, &a.sv, &a.sdo};
-  for (const Strides* st : all)
+  for (const Strides* st : all)  // the forward's sdo is all 0
     vec = vec && st->b % 8 == 0 && st->h % 8 == 0 && st->s % 8 == 0;
+  if (which == 0) {
+    if (a.D <= 64) return run_fwd_mma<T, 64, 4, 2, 64>(a, vec);
+    if (a.D <= 128) return run_fwd_mma<T, 128, 4, 1, 64>(a, vec);
+    return run_fwd_mma<T, 256, 4, 1, 32>(a, vec);
+  }
   if (a.D <= 64)
-    return which == 1 ? run_dq_mma<64, 4, 64>(a, vec)
-                      : run_dkv_mma<64, 4, 64>(a, vec);
-  return which == 1 ? run_dq_mma<128, 4, 32>(a, vec)
-                    : run_dkv_mma<128, 4, 32>(a, vec);
+    return which == 1 ? run_dq_mma<T, 64, 4, 64>(a, vec)
+                      : run_dkv_mma<T, 64, 4, 64>(a, vec);
+  return which == 1 ? run_dq_mma<T, 128, 4, 32>(a, vec)
+                    : run_dkv_mma<T, 128, 4, 32>(a, vec);
 }
 
-// The FMA kernels at one tile shape. bf16 dq and dk/dv with DP <= 128 run
-// on the tensor cores and are not built here.
+// The FMA kernels at one tile shape. What the 16-bit types run on the
+// tensor cores is not built here.
 template <typename T, int DP, int BQ, int BK, int NSPLIT>
 int run_fma(int which, const Args& a) {
-  if (which == 0) return run_fwd<T, DP, BQ, BK>(a);
-  if constexpr (std::is_same<T, bf16>::value && DP <= 128) {
+  constexpr bool k16 = !std::is_same<T, float>::value;
+  if (which == 0) {
+    if constexpr (k16 && DP <= kFwdMmaDMax)
+      return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return run_fwd<T, DP, BQ, BK>(a);
+  }
+  if constexpr (k16 && DP <= kBwdMmaDMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (which == 1) return run_dq<T, DP, BQ, BK>(a);
@@ -890,20 +1138,22 @@ int run_fma(int which, const Args& a) {
   }
 }
 
-// which: 0 forward, 1 dq, 2 dk/dv. bf16 dq and dk/dv with D <= 128 go to
-// the tensor-core kernels (dispatch_mma). Every other case runs the FMA
-// kernels, tiles by padded head dim: DP 64 with BQ = BK = 64 (or BQ = 48
-// in float32, tiles that do not divide each other), DP 128 with 64/64,
-// DP 256 with 32/32 (dk/dv in two column halves).
+// which: 0 forward, 1 dq, 2 dk/dv. The 16-bit types go to the tensor-core
+// kernels (dispatch_mma) up to kFwdMmaDMax / kBwdMmaDMax. Every other case
+// runs the FMA kernels, tiles by padded head dim: DP 64 with BQ = BK = 64
+// (or BQ = 48 in float32, tiles that do not divide each other), DP 128
+// with 64/64, DP 256 with 32/32 (dk/dv in two column halves).
 template <typename T>
 int dispatch(int which, int block_q, const Args& a) {
-  if (block_q != 64 && !(block_q == 48 && a.D <= 64 &&
-                         std::is_same<T, float>::value))
+  constexpr bool k16 = !std::is_same<T, float>::value;
+  if (block_q != 64 && !(block_q == 48 && a.D <= 64 && !k16))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (std::is_same<T, bf16>::value && which != 0 && a.D <= 128)
-    return dispatch_mma(which, a);
+  if constexpr (k16) {
+    if (a.D <= (which == 0 ? kFwdMmaDMax : kBwdMmaDMax))
+      return dispatch_mma<T>(which, a);
+  }
   if (a.D <= 64) {
-    if constexpr (std::is_same<T, float>::value)
+    if constexpr (!k16)
       if (block_q == 48) return run_fma<T, 64, 48, 64, 1>(which, a);
     return run_fma<T, 64, 64, 64, 1>(which, a);
   }
@@ -919,12 +1169,14 @@ int launch(int which, int dtype, int block_q, Args& a, const long long* st,
   for (int t = 0; t < n_strided; ++t) *dst[t] = {st[3 * t], st[3 * t + 1], st[3 * t + 2]};
   if (dtype == 0) return dispatch<float>(which, block_q, a);
   if (dtype == 1) return dispatch<__nv_bfloat16>(which, block_q, a);
+  if (dtype == 2) return dispatch<__half>(which, block_q, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs share it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dO and the
+// outputs share it).
 // strides: (b, h, s) element strides of q, k, v[, dO], 3 per tensor.
 // o, dq, dk, dv: contiguous (B, H, S, D); lse, delta: contiguous float32
 // (B, H, S). Each returns the cudaError_t of its launch (0 = cudaSuccess).

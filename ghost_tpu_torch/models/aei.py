@@ -6,8 +6,11 @@
   * AADGenerator: z_id -> ConvTranspose(k2) to 2x2, then 8 AAD res-blocks
     each followed by a 2x bilinear upsample, tanh output;
   * AADLayer: attr gamma|beta from one 1x1 conv (2*c_x outputs), id
-    gamma|beta from one dense layer, then the fused AAD modulation
-    (`ops/cuda/aad.py:aad_modulate`: the CUDA kernel for CUDA tensors).
+    gamma|beta from one dense layer, then the modulation: with
+    `fused_aad=True` the fused AAD kernel (`ops/cuda/aad.py:aad_modulate`,
+    the CUDA kernel for CUDA tensors; inference only, its backward
+    raises), with `fused_aad=False` (the default, as in JAX) plain torch
+    ops that train.
 
 Inside, tensors are NCHW in channels_last memory, so a pixel's channels
 are contiguous, the layout the AAD kernel reads; `AEINet.forward` takes
@@ -17,12 +20,13 @@ and returns NHWC like the JAX model. The resnet encoder is not ported.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ghost_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, Dense,
-                                       leaky_relu, resize_like_torch, to_nchw,
-                                       to_nhwc)
+                                       instance_norm, leaky_relu,
+                                       resize_like_torch, to_nchw, to_nhwc)
 from ghost_tpu_torch.ops.cuda.aad import aad_modulate
 
 # channel plans (reference network/AEI_Net.py)
@@ -124,18 +128,26 @@ class AADLayer(nn.Module):
 
     attr_upsample=2 takes z_attr at half the resolution of h and
     upsamples the 1x1 conv OUTPUT (the conv is per-pixel affine and the
-    align_corners weights sum to 1, so conv(up(z)) == up(conv(z)))."""
+    align_corners weights sum to 1, so conv(up(z)) == up(conv(z))).
+
+    fused_aad picks the modulation at construction, as the JAX `fused`
+    flag does: True runs the fused kernel (inference; its backward
+    raises), False the unfused body of `ghost_tpu/models/aei.py:209-218`,
+    which trains. Both read the same parameters."""
 
     def __init__(self, c_x, c_attr, c_id=512, policy: Policy = DEFAULT_POLICY,
-                 attr_upsample: int = 1, device=None):
+                 attr_upsample: int = 1, fused_aad: bool = False,
+                 device=None):
         super().__init__()
         cd = policy.compute_dtype
         self.c_x = c_x
         self.compute_dtype = cd
         self.attr_upsample = attr_upsample
+        self.fused_aad = fused_aad
         self.attr_gb = Conv(c_attr, 2 * c_x, 1, dtype=cd, device=device)
         self.id_gb = Dense(c_id, 2 * c_x, dtype=cd, device=device)
-        # read in f32 by the modulation, like the JAX fused path
+        # an f32 parameter: read in f32 by the fused kernel, cast to the
+        # compute dtype by the unfused path (JAX's Conv(1, dtype=cd))
         self.mask = Conv(c_x, 1, 1, dtype=torch.float32, device=device)
 
     def forward(self, h_in, z_attr, z_id):
@@ -146,10 +158,19 @@ class AADLayer(nn.Module):
                 method="bilinear", align_corners=True))
         ab = to_nhwc(ab_attr)  # (B,H,W,2C): gamma|beta halves share rows
         ab_id = self.id_gb(z_id)
-        out = aad_modulate(to_nhwc(h_in.to(self.compute_dtype)),
-                           ab[..., :self.c_x], ab[..., self.c_x:], ab_id,
-                           self.mask.weight, self.mask.bias)
-        return to_nchw(out)
+        cd, c = self.compute_dtype, self.c_x
+        h = to_nhwc(h_in.to(cd))
+        if self.fused_aad:  # K1 reads h as contiguous NHWC rows
+            return to_nchw(aad_modulate(h.contiguous(), ab[..., :c],
+                                        ab[..., c:], ab_id, self.mask.weight,
+                                        self.mask.bias))
+        # f32 statistics over tensors in the compute dtype
+        h = instance_norm(h)
+        m = torch.sigmoid(to_nhwc(F.conv2d(
+            to_nchw(h), self.mask.weight.to(cd), self.mask.bias.to(cd))))
+        a = ab[..., :c] * h + ab[..., c:]
+        i = ab_id[:, None, None, :c] * h + ab_id[:, None, None, c:]
+        return to_nchw((1.0 - m) * a + m * i)
 
 
 class AADResBlock(nn.Module):
@@ -158,7 +179,7 @@ class AADResBlock(nn.Module):
 
     def __init__(self, cin, cout, c_attr, c_id=512, num_blocks=2,
                  policy: Policy = DEFAULT_POLICY, attr_upsample: int = 1,
-                 device=None):
+                 fused_aad: bool = False, device=None):
         super().__init__()
         cd = policy.compute_dtype
         self.num_blocks = num_blocks
@@ -166,13 +187,14 @@ class AADResBlock(nn.Module):
         for i in range(num_blocks):
             out_ch = cin if i < num_blocks - 1 else cout
             self.add_module(f"aad{i}", AADLayer(cin, c_attr, c_id, policy,
-                                                attr_upsample, device))
+                                                attr_upsample, fused_aad,
+                                                device))
             self.add_module(f"conv{i}", Conv(cin, out_ch, 3, padding=1,
                                              use_bias=False, dtype=cd,
                                              device=device))
         if self.shortcut:
             self.aad_short = AADLayer(cin, c_attr, c_id, policy, attr_upsample,
-                                      device)
+                                      fused_aad, device)
             self.conv_short = Conv(cin, cout, 3, padding=1, use_bias=False,
                                    dtype=cd, device=device)
 
@@ -192,11 +214,14 @@ class AADGenerator(nn.Module):
 
     blk8's attr map (unet/linknet) is a pure 2x upsample of z_attr7 and
     blk8 reads it only through 1x1 convs: it takes the 128-res map and
-    upsamples the conv outputs instead (exact commute, 1/4 the pixels)."""
+    upsamples the conv outputs instead (exact commute, 1/4 the pixels).
+
+    fused_aad=True runs the fused AAD kernel in every AADLayer (JAX gates
+    it on cin >= 128 and k >= 4, a TPU lowering choice)."""
 
     def __init__(self, attr_channels, backbone="unet", c_id=512, num_blocks=2,
                  policy: Policy = DEFAULT_POLICY, width: float = 1.0,
-                 device=None):
+                 fused_aad: bool = False, device=None):
         super().__init__()
         cd = policy.compute_dtype
         self.policy = policy
@@ -210,7 +235,7 @@ class AADGenerator(nn.Module):
             c_attr = attr_channels[6 if commute else k]
             self.add_module(f"blk{k + 1}", AADResBlock(
                 cin, cout, c_attr, c_id, num_blocks, policy,
-                2 if commute else 1, device))
+                2 if commute else 1, fused_aad, device))
 
     def forward(self, z_attrs, z_id):
         cd = self.policy.compute_dtype
@@ -226,18 +251,22 @@ class AADGenerator(nn.Module):
 
 
 class AEINet(nn.Module):
-    """forward(Xt (B,256,256,3) NHWC, z_id (B,512)) -> (Y NHWC, z_attrs NHWC)."""
+    """forward(Xt (B,256,256,3) NHWC, z_id (B,512)) -> (Y NHWC, z_attrs NHWC).
+
+    fused_aad: False (the default, as in JAX) trains; True runs the
+    inference-only fused AAD kernel, as the swap pipeline does."""
 
     def __init__(self, backbone="unet", c_id=512, num_blocks=2,
                  policy: Policy = DEFAULT_POLICY, width: float = 1.0,
-                 device=None):
+                 fused_aad: bool = False, device=None):
         super().__init__()
         if backbone not in ("unet", "linknet"):
             raise ValueError(f"backbone {backbone!r} is not ported "
                              "(unet and linknet are)")
         self.encoder = MLAttrEncoder(backbone, policy, width, device)
         self.generator = AADGenerator(self.encoder.attr_channels, backbone,
-                                      c_id, num_blocks, policy, width, device)
+                                      c_id, num_blocks, policy, width,
+                                      fused_aad, device)
 
     def forward(self, xt, z_id):
         attrs = self.encoder(to_nchw(xt.contiguous()))

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ghost_tpu_torch.ops.cuda.conv3x3 import conv3x3
+from ghost_tpu_torch.ops.cuda.conv3x3 import conv3x3_fn
 
 
 def _pair(v):
@@ -77,7 +77,8 @@ class Conv(nn.Module):
 
 class Conv3x3(nn.Module):
     """3x3 stride-1 SAME conv on NHWC tensors through S2
-    (`ops/cuda/conv3x3.py`: the CUDA kernel for CUDA tensors). The weight
+    (`ops/cuda/conv3x3.py:conv3x3_fn`: the CUDA kernel for CUDA tensors,
+    with a backward whose dx runs S2 too). The weight
     stays in flax's HWIO layout (3, 3, cin, cout), the layout S2 reads;
     the bias stays float32 and is added in S2's f32 epilogue."""
 
@@ -98,8 +99,8 @@ class Conv3x3(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return conv3x3(x.to(self.dtype).contiguous(),
-                       self.weight.to(self.dtype), self.bias)
+        return conv3x3_fn(x.to(self.dtype).contiguous(),
+                          self.weight.to(self.dtype), self.bias)
 
 
 class ConvTranspose(nn.Module):
@@ -306,7 +307,9 @@ def resize_matrix(method: str, in_size: int, out_size: int,
                   align_corners: bool, device: torch.device,
                   dtype: torch.dtype) -> torch.Tensor:
     """The (out, in) interpolation matrix, cast to the activation dtype
-    like `ghost_tpu/nn/layers.py:394-398`, cached per device."""
+    like `ghost_tpu/nn/layers.py:394-398`, cached per device. Built
+    outside inference mode, so a matrix first made by an inference call
+    can join a later autograd graph (a training step)."""
     if method == "bilinear":
         mat = _linear_matrix(in_size, out_size, align_corners)
     elif method == "area":
@@ -315,7 +318,8 @@ def resize_matrix(method: str, in_size: int, out_size: int,
         mat = _nearest_matrix(in_size, out_size)
     else:
         raise ValueError(f"unknown resize method {method!r}")
-    return torch.from_numpy(mat).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(mat).to(device=device, dtype=dtype)
 
 
 def apply_matrix_axis(x, mat, axis: int):

@@ -3,7 +3,11 @@ plain PyTorch version, mirroring `ghost_tpu/ops/pallas/aad.py`.
 
 `aad_modulate` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. `aad_modulate.launches`
-counts the calls that launched the kernel.
+counts the calls that launched the kernel. It has no gradient, like the
+JAX kernel (a Pallas call with no VJP, which the JAX package keeps out
+of training): its backward raises on every device, so a loss through
+the fused path never trains silently on zeros. AEI-Net trains through
+its unfused AADLayer (`models/aei.py`, `fused_aad=False`).
 """
 
 from __future__ import annotations
@@ -97,15 +101,8 @@ def _kernel_lib():
     return fn
 
 
-def aad_modulate(h, gamma_attr, beta_attr, id_gb, mask_kernel, mask_bias,
-                 eps: float = 1e-5):
-    """Fused AAD modulation (one AAD layer minus its projections).
-
-    h (B,H,W,C) contiguous; gamma_attr, beta_attr (B,H,W,C) with unit
-    channel stride and a pixel stride >= C (the two halves of a packed
-    (B,H,W,2C) tensor qualify); id_gb (B,2C) packed [gamma_id|beta_id];
-    mask_kernel C float32 values; mask_bias (1,) float32.
-    """
+def _modulate(h, gamma_attr, beta_attr, id_gb, mask_kernel, mask_bias, eps):
+    """The plain version for CPU tensors, else one kernel launch."""
     if h.device.type == "cpu":
         return aad_modulate_plain(h, gamma_attr, beta_attr, id_gb,
                                   mask_kernel, mask_bias, eps)
@@ -127,6 +124,35 @@ def aad_modulate(h, gamma_attr, beta_attr, id_gb, mask_kernel, mask_bias,
         raise RuntimeError(f"aad_modulate kernel launch failed: cudaError {rc}")
     aad_modulate.launches += 1
     return out
+
+
+class _AADModulate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, gamma_attr, beta_attr, id_gb, mask_kernel,
+                mask_bias, eps):
+        return _modulate(h, gamma_attr, beta_attr, id_gb, mask_kernel,
+                         mask_bias, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise RuntimeError(
+            "aad_modulate has no gradient: the fused AAD kernel is "
+            "inference-only, as in the JAX package (its Pallas call has no "
+            "VJP); build AEI-Net with fused_aad=False to train")
+
+
+def aad_modulate(h, gamma_attr, beta_attr, id_gb, mask_kernel, mask_bias,
+                 eps: float = 1e-5):
+    """Fused AAD modulation (one AAD layer minus its projections), for
+    inference: a backward through it raises.
+
+    h (B,H,W,C) contiguous; gamma_attr, beta_attr (B,H,W,C) with unit
+    channel stride and a pixel stride >= C (the two halves of a packed
+    (B,H,W,2C) tensor qualify); id_gb (B,2C) packed [gamma_id|beta_id];
+    mask_kernel C float32 values; mask_bias (1,) float32.
+    """
+    return _AADModulate.apply(h, gamma_attr, beta_attr, id_gb, mask_kernel,
+                              mask_bias, eps)
 
 
 aad_modulate.launches = 0

@@ -10,14 +10,18 @@ per q tile and one per k tile: no atomics, the same sums on every run.
 
 Each of the three wrappers takes its plain version only for CPU tensors;
 for CUDA tensors it launches its kernel or raises. Their `.launches`
-count the calls that launched. In bf16 with D <= 128 (`MMA_D_MAX`) dq
-and dk/dv run on the tensor cores and round p and ds to bf16 where they
-enter a product; `.tensor_core_launches` counts those launches, and the
-plain versions round at the same places (float32 and D > 128 keep f32). The kernels take the inputs' b/h/s
-strides (unit D stride), so the split heads of a projection are passed
-without a copy. The JAX block-size fitting (`_fit_block`,
-`DEFAULT_BLOCK_*`, `DKV_BLOCK_CAP`) tunes TPU VMEM and has no
-counterpart: the CUDA kernels pick their tiles from the head dim.
+count the calls that launched. The kernels take float32, bfloat16 and
+float16 with D <= 256 (`D_MAX`). In the 16-bit types the forward (any
+such D) and dq and dk/dv (D <= 128, `MMA_D_MAX`) run on the tensor
+cores and round p (and ds) to the inputs' type where they enter a
+product, as FlashAttention-2 does; `.tensor_core_launches` counts those
+launches, and the plain versions round at the same places (float32,
+and dq and dk/dv with D > 128, keep f32 on the FMA kernels). The
+kernels take the inputs' b/h/s strides (unit D stride), so the split
+heads of a projection are passed without a copy. The JAX block-size
+fitting (`_fit_block`, `DEFAULT_BLOCK_*`, `DKV_BLOCK_CAP`) tunes TPU
+VMEM and has no counterpart: the CUDA kernels pick their tiles from the
+head dim.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from ghost_tpu_torch.ops.cuda._build import load_library
 NEG_INF = -1e30
 D_MAX = 256
 MMA_D_MAX = 128
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _scale(q, sm_scale):
@@ -64,14 +68,21 @@ def flash_attention_plain(q, k, v, causal: bool = False,
 def flash_attention_fwd_plain(q, k, v, causal: bool = False,
                               sm_scale: float | None = None):
     """The forward kernel's function: output in q's dtype and the row
-    LSE (B,H,S,1) f32; q is scaled before the product, as the kernel."""
+    LSE (B,H,S,1) f32; q is scaled before the product, as the kernel.
+    The unnormalised p = exp(s - rowmax) goes into p v and the row sum l
+    divides after, as in the kernel; on the tensor cores p is rounded to
+    q's dtype before p v (at the kernel's scale wherever its running max
+    is the row max: always for rows of one k tile)."""
     sm_scale = _scale(q, sm_scale)
     logits = _causal_mask(torch.einsum("bhqd,bhkd->bhqk",
                                        q.float() * sm_scale, k.float()),
                           causal)
-    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bhkd->bhqd", torch.exp(logits - lse), v.float())
-    return out.to(q.dtype), lse
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    (p,) = _product_operands(q, p, forward=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / denom
+    return out.to(q.dtype), m + torch.log(denom)
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale):
@@ -84,17 +95,20 @@ def _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale):
     return p, p * (dp - delta.reshape(*q.shape[:3], 1))
 
 
-def on_tensor_cores(q):
-    """Whether dq and dk/dv of these inputs run on the bf16 tensor cores."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] <= MMA_D_MAX
+def on_tensor_cores(q, forward: bool = False):
+    """Whether the forward (forward=True: every D the card takes), or dq
+    and dk/dv (D <= MMA_D_MAX), of these inputs run on the 16-bit tensor
+    cores."""
+    return (q.dtype in (torch.bfloat16, torch.float16)
+            and (forward or q.shape[-1] <= MMA_D_MAX))
 
 
-def _product_operands(q, *ts):
-    """p and ds as the backward kernels feed them to their products:
-    rounded to bf16 on the tensor cores, f32 otherwise."""
-    if not on_tensor_cores(q):
+def _product_operands(q, *ts, forward: bool = False):
+    """p (and ds) as the kernels feed them to their products: rounded to
+    q's 16-bit type on the tensor cores, f32 otherwise."""
+    if not on_tensor_cores(q, forward):
         return ts
-    return tuple(t.to(torch.bfloat16).float() for t in ts)
+    return tuple(t.to(q.dtype).float() for t in ts)
 
 
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale):
@@ -146,8 +160,8 @@ def _strides(name, t, shape):
 
 def _check(q, k, v, do=None, lse=None, delta=None, block_q=64):
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"flash_attention takes float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if q.ndim != 4:
         raise ValueError(f"q must be (B,H,S,D), got {tuple(q.shape)}")
     b, h, s, d = q.shape
@@ -211,6 +225,7 @@ def _fwd_launch(q, k, v, causal, sm_scale, block_q):
              ctypes.addressof(strides), out.data_ptr(), lse.data_ptr()),
             causal, sm_scale)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tensor_core_launches += on_tensor_cores(q, True)
     return out, lse
 
 
@@ -276,7 +291,7 @@ def _flash_attention_tiles(q, k, v, do, causal, block_q):
     (64, or 48 for float32 with D <= 64) against k tiles of 64:
     (out, lse, delta, dq, dk, dv). Tiles of 48 do not divide those of
     64, which checks the causal loop bounds; the wrappers use 64. The
-    tensor-core dq and dk/dv pick their own tiles (block_q 64)."""
+    tensor-core kernels pick their own tiles (block_q 64)."""
     _on_card(q, "_flash_attention_tiles")
     sm_scale = _scale(q, None)
     out, lse = _fwd_launch(q, k, v, causal, sm_scale, block_q)
@@ -288,6 +303,7 @@ def _flash_attention_tiles(q, k, v, do, causal, block_q):
 flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_fwd.tensor_core_launches = 0
 flash_attention_bwd_dq.tensor_core_launches = 0
 flash_attention_bwd_dkv.tensor_core_launches = 0
 

@@ -8,8 +8,17 @@ and `scripts/profile_kernels_ab.py:make_conv_pallas`, whose golden is
 an optional f32 bias is added, and the result is cast once to x's dtype.
 
 `conv3x3` takes the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises. `conv3x3.launches` counts the calls
-that launched the kernel.
+it launches the kernel or raises: bf16 on the tensor cores, float32 on
+f32 FMAs. `conv3x3.launches` counts the calls that launched the kernel.
+
+`conv3x3_fn` is the differentiable op (`nn.layers.Conv3x3` calls it):
+its forward is `conv3x3`, its backward computes the gradient and never
+falls back: dx = conv3x3(dy, k') with k' the kernel turned by 180
+degrees in its two spatial axes, Cin and Cout swapped (S2 itself, in
+the input's dtype); dk the plain weight gradient (the zero-padded input
+patches times dy, summed over pixels in f32, cast to k's dtype; the JAX
+package takes it from XLA's conv gradient, outside any Pallas kernel);
+dbias dy summed in f32.
 """
 
 from __future__ import annotations
@@ -97,3 +106,46 @@ def conv3x3(x, k, bias=None):
 
 
 conv3x3.launches = 0
+
+
+def conv3x3_dx_kernel(k):
+    """The kernel of dx = conv(dy, k'): k (3,3,Cin,Cout) turned by 180
+    degrees in its spatial axes, (3,3,Cout,Cin), contiguous."""
+    return k.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def conv3x3_dk(x, dy, k_dtype):
+    """The weight gradient (3,3,Cin,Cout) in k_dtype: sum over pixels of
+    the zero-padded 3x3 input patches times dy, in f32."""
+    cin, cout = x.shape[-1], dy.shape[-1]
+    dk = torch.nn.grad.conv2d_weight(
+        x.float().permute(0, 3, 1, 2), (cout, cin, 3, 3),
+        dy.float().permute(0, 3, 1, 2), padding=1)
+    return dk.permute(2, 3, 1, 0).to(k_dtype)
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k, bias):
+        ctx.save_for_backward(x, k)
+        ctx.has_bias = bias is not None
+        return conv3x3(x, k, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, k = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dk = dbias = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3(dy, conv3x3_dx_kernel(k))
+        if ctx.needs_input_grad[1]:
+            dk = conv3x3_dk(x, dy, k.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            dbias = dy.float().sum(dim=(0, 1, 2))
+        return dx, dk, dbias
+
+
+def conv3x3_fn(x, k, bias=None):
+    """`conv3x3` with a gradient: x (B,H,W,Cin) contiguous, k (3,3,Cin,
+    Cout) in x's dtype, bias None or (Cout,) float32."""
+    return _Conv3x3.apply(x, k, bias)

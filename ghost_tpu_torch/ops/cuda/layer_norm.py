@@ -8,8 +8,11 @@ backward uses them in the three-term gradient. The two wrappers,
 `fused_layer_norm_fwd` and `fused_layer_norm_bwd`, take their plain
 versions only for CPU tensors; for CUDA tensors they launch their
 kernels or raise, and their `.launches` count the calls that launched.
-The JAX row-block fitting (`_fit_rows`, `block_rows`) tunes TPU VMEM and
-has no counterpart: the forward runs one block per row, the backward a
+The kernels read rows of contiguous memory: on the card the wrappers
+copy a non-contiguous x (and dy) into that layout first, so any layout
+is taken, as by the JAX function, and the gradient comes back in x's
+shape. The JAX row-block fitting (`_fit_rows`, `block_rows`) tunes TPU
+VMEM and has no counterpart: the forward runs one block per row, the backward a
 fixed grid of row chunks.
 """
 
@@ -98,6 +101,7 @@ def fused_layer_norm_fwd(x, gamma, beta, eps: float = 1e-5):
         return layer_norm_fwd_plain(x, gamma, beta, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_norm has no kernel for {x.device}")
+    x = x.contiguous()
     rows, h = _check(x, gamma, beta)
     g32 = gamma.float().contiguous()
     b32 = beta.float().contiguous()
@@ -124,6 +128,7 @@ def fused_layer_norm_bwd(x, gamma, mean, rstd, dy):
         return layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_norm has no kernel for {x.device}")
+    x, dy = x.contiguous(), dy.contiguous()
     rows, h = _check(x, gamma)
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("dy must be contiguous with x's shape and dtype")
@@ -158,6 +163,8 @@ fused_layer_norm_bwd.launches = 0
 class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
+        if x.device.type == "cuda":  # the layout the kernels read, saved once
+            x = x.contiguous()
         y, mean, rstd = fused_layer_norm_fwd(x, gamma, beta, eps)
         ctx.save_for_backward(x, gamma, mean, rstd)
         return y
@@ -165,8 +172,7 @@ class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma, mean, rstd = ctx.saved_tensors
-        dx, dgamma, dbeta = fused_layer_norm_bwd(x, gamma, mean, rstd,
-                                                 dy.contiguous())
+        dx, dgamma, dbeta = fused_layer_norm_bwd(x, gamma, mean, rstd, dy)
         return dx, dgamma, dbeta, None
 
 

@@ -698,6 +698,10 @@ def build_random_pipeline(config: SwapConfig = SwapConfig(),
     layouts (utils/face_template.py) so detections, masks and the blend
     are non-trivial on random weights.
 
+    AEI-Net is built with fused_aad=True: the pipeline is inference, and
+    every AADLayer runs the fused kernel (as `ghost_tpu/pipeline/swap.py`
+    turns it on).
+
     sr: the SR seat (see `SwapPipeline`), passed through as it is."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -707,7 +711,7 @@ def build_random_pipeline(config: SwapConfig = SwapConfig(),
     det = SCRFD(policy=policy)
     arc = IResNet(layers=arcface_layers, policy=policy)
     aei = AEINet(backbone=backbone, num_blocks=2, policy=policy,
-                 width=gen_width)
+                 width=gen_width, fused_aad=True)
     lmk = Landmark106(policy=policy)
     for model in (det, arc, aei, lmk):
         init_weights(model, gen)

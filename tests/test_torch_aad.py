@@ -1,5 +1,7 @@
-"""AAD modulate: the port's plain version and AADLayer against ghost_tpu,
-and (on a card) the CUDA kernel against the plain version.
+"""AAD modulate: the port's plain version and AADLayer (fused and
+unfused) against ghost_tpu, and (on a card) the CUDA kernel against the
+plain version, the unfused AEI-Net's gradients against the CPU's and the
+fused one's raising backward.
 
 The JAX kernel runs as its own tests run it on the CPU: Pallas interpret
 mode (`ghost_tpu/ops/pallas/aad.py:88-89`). Bounds: f32 1e-5 (the same
@@ -90,7 +92,8 @@ def test_aad_layer_matches_jax(rng, fused, attr_upsample):
     ref = jmod.apply(variables, jnp.asarray(h), jnp.asarray(za),
                      jnp.asarray(zid))
     tmod = load_flax_variables(
-        AADLayer(c, ca, 512, FULL_PRECISION, attr_upsample), variables)
+        AADLayer(c, ca, 512, FULL_PRECISION, attr_upsample, fused_aad=fused),
+        variables)
     with torch.no_grad():
         out = to_nhwc(tmod(to_nchw(torch.from_numpy(h)),
                            to_nchw(torch.from_numpy(za)),
@@ -150,3 +153,56 @@ def test_kernel_matches_plain_on_card(dtype):
         bound = (0.1 if dtype == "bfloat16" else 1e-4) \
             + ref.float().abs() * (2 ** -6 if dtype == "bfloat16" else 1e-5)
         assert bool((err <= bound).all()), (shape, float(err.max()))
+
+
+def _tiny_aeinet(fused_aad):
+    from ghost_tpu_torch.models.aei import AEINet
+    from ghost_tpu_torch.nn.layers import init_weights
+
+    return init_weights(AEINet("unet", num_blocks=1, policy=FULL_PRECISION,
+                               width=1 / 16, fused_aad=fused_aad),
+                        torch.Generator().manual_seed(0))
+
+
+@pytest.mark.gpu
+def test_aeinet_grads_on_card():
+    """AEINet(fused_aad=False) trains on the card: f32 gradients of Xt and
+    every parameter on CUDA tensors (TF32 off) against the same model on
+    the CPU, within 2e-2 of each tensor's largest gradient plus 1e-6 of
+    the model's (the f32 conditioning of tests/test_torch_models.py::
+    test_aeinet_grads_match_jax). With fused_aad=True the forward runs
+    K1 in every AADLayer and the backward raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    xt = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(
+        np.float32))
+    zid = torch.from_numpy(rng.normal(0, 1, (1, 512)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (1, 256, 256, 3)).astype(
+        np.float32))
+    cpu = _tiny_aeinet(False)
+    grads = {}
+    for dev, mod in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).cuda())):
+        x = xt.detach().to(dev).requires_grad_()
+        y, _ = mod(x, zid.to(dev))
+        torch.sum(y * w.to(dev)).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in mod.named_parameters()}
+        grads[dev]["xt"] = x.grad.cpu()
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads["cpu"].values())
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got - want).abs().max())
+        assert err <= 2e-2 * float(want.abs().max()) + floor, (name, err)
+
+    fused = _tiny_aeinet(True).cuda()
+    before = aad_modulate.launches
+    y, _ = fused(xt.cuda(), zid.cuda())
+    layers = sum(isinstance(m, AADLayer) for m in fused.modules())
+    assert aad_modulate.launches - before == layers == 13
+    with pytest.raises(RuntimeError, match="fused_aad=False"):
+        y.sum().backward()

@@ -83,6 +83,25 @@ def test_nd_input_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+def test_noncontiguous_input_matches_jax():
+    """x as a transposed view (no unit row stride): the output equals
+    JAX's on the same values and the gradient comes back in x's shape."""
+    import jax.numpy as jnp
+
+    from ghost_tpu.ops.pallas.layer_norm import fused_layer_norm as j_fused
+
+    x, g, b = _inputs(6, (96, 40))
+    xt = torch.from_numpy(x).t()  # (40, 96) with strides (1, 40)
+    g, b = _inputs(7, (96,))[1:]
+    ref = j_fused(*(jnp.asarray(a) for a in (xt.numpy(), g, b)), 1e-5, 8,
+                  True)
+    xt.requires_grad_()
+    y = fused_layer_norm(xt, torch.from_numpy(g), torch.from_numpy(b))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref), **TOL)
+    y.sum().backward()
+    assert xt.grad.shape == xt.shape
+
+
 def test_bwd_plain_matches_autograd_of_plain():
     x, g, b = _inputs(3, (3, 5, 48))
     dy = np.random.default_rng(4).standard_normal(x.shape).astype(np.float32)
@@ -142,3 +161,35 @@ def test_kernels_match_plain_on_card(dtype):
                 bound = 1e-5 * (1 + np.abs(exp))
             assert (np.abs(got - exp) <= bound).all(), \
                 (shape, name, float(np.abs(got - exp).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noncontiguous_input_on_card(dtype):
+    """A transposed x on the card: the wrappers copy it into rows, the
+    kernels run (one forward and one backward launch) and match the plain
+    versions on the same values; dx comes back in x's shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(_inputs(8, (768, 1000))[0]).cuda()
+    g, b = (torch.from_numpy(a).cuda() for a in _inputs(9, (768,))[1:])
+    xt = x.to(td).t()  # (1000, 768), strides (1, 1000)
+    assert not xt.is_contiguous()
+    xt.requires_grad_()
+    dy = torch.randn(xt.shape, device="cuda").to(td)
+    before = (fused_layer_norm_fwd.launches, fused_layer_norm_bwd.launches)
+    y = fused_layer_norm(xt, g, b)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm_fwd.launches, fused_layer_norm_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert xt.grad.shape == xt.shape
+    xc = xt.detach().contiguous()
+    ref, mean, rstd = layer_norm_fwd_plain(xc, g, b)
+    dx = layer_norm_bwd_plain(xc, g, mean, rstd, dy)[0]
+    for got, exp in ((y.detach(), ref), (xt.grad, dx)):
+        got, exp = got.float().cpu().numpy(), exp.float().cpu().numpy()
+        bound = (np.abs(exp) * 2 ** -7 + 1e-3 if dtype == "bfloat16"
+                 else 1e-5 * (1 + np.abs(exp)))
+        assert (np.abs(got - exp) <= bound).all()

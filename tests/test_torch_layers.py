@@ -138,3 +138,19 @@ def test_bridge_is_strict():
                             {"params": dict(variables["params"], extra=1.0)})
     with pytest.raises(ValueError, match="does not fit"):
         load_flax_variables(tl.ConvTranspose(3, 4, 4, 2, 1), variables)
+
+
+def test_resize_matrix_from_inference_joins_autograd():
+    """A resize matrix first built under inference mode (the swap
+    pipeline) serves a later training step: the cached matrix is a normal
+    tensor, and the gradient of the resize is the matrix's transpose."""
+    x = torch.rand(1, 5, 7, 2)
+    tl.resize_matrix.cache_clear()
+    with torch.inference_mode():
+        tl.resize(x, (9, 11))
+    xg = x.clone().requires_grad_()
+    tl.resize(xg, (9, 11)).sum().backward()
+    mh = tl.resize_matrix("bilinear", 5, 9, False, x.device, x.dtype)
+    mw = tl.resize_matrix("bilinear", 7, 11, False, x.device, x.dtype)
+    want = torch.outer(mh.sum(0), mw.sum(0))[None, :, :, None].expand_as(x)
+    torch.testing.assert_close(xg.grad, want)

@@ -5,6 +5,8 @@ Bound 1e-4 in f32 (deep conv stacks, sums in another order). The
 weights are seeded numpy draws for every leaf, BatchNorm off identity.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from ghost_tpu.utils.face_template import (inject_detection_template,
                                            inject_landmark_template)
 from ghost_tpu_torch.convert.from_jax import load_flax_variables
 from ghost_tpu_torch.core.precision import FULL_PRECISION
+from ghost_tpu_torch.nn.layers import init_weights
 from ghost_tpu_torch.models import aei as taei
 from ghost_tpu_torch.models import arcface as tarc
 from ghost_tpu_torch.models import landmark as tlmk
@@ -179,3 +182,72 @@ def test_aeinet(rng, backbone, num_blocks):
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **F32)
     for a, b in zip(attrs_ref, attrs):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), **F32)
+
+
+def test_aeinet_grads_match_jax(rng):
+    """AEINet(fused_aad=False), the training route, f32: gradients of Xt,
+    z_id and every parameter against jax.grad of the JAX AEINet
+    (fused_aad=False) on the same weights, at the narrow width of
+    test_aeinet. The JAX gradient tree reaches the port's layout through
+    the bridge (its transposes are linear).
+
+    Bound per tensor: 2e-2 of its largest |gradient|, plus 1e-6 of the
+    largest |gradient| in the model. The gradients are ill-conditioned
+    in f32: the instance norms over 2x2 and 4x4 maps divide by standard
+    deviations of 4 and 16 values, and a loss over 196608 outputs sums
+    terms of both signs. The port's own f32 and f64 runs of this case
+    part by up to 6.5e-3 of a tensor's largest gradient (JAX's f32 run
+    and the port's f64 one by up to 4.4e-3), while one AADLayer's
+    gradients agree with JAX to 1e-6. The bias of up1
+    has an exact gradient of 0 (the next instance norm removes its
+    shift): both sides give noise at 1e-7 of the model's largest
+    gradient. A wrong term (mask, blend, a missing norm) moves a
+    gradient by O(1) of its size."""
+    width = 1 / 16
+    jm = jaei.AEINet(backbone="unet", num_blocks=1, policy=JFULL,
+                     width=width)
+    variables = _variables(jm, rng, (1, 256, 256, 3), (1, 512))
+    tm = load_flax_variables(
+        taei.AEINet("unet", num_blocks=1, policy=FULL_PRECISION,
+                    width=width), variables)
+    xt = rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32)
+    zid = rng.normal(0, 1, (1, 512)).astype(np.float32)
+    w = rng.normal(0, 1, (1, 256, 256, 3)).astype(np.float32)
+
+    def loss(params, xt, zid):
+        y, _ = jm.apply({"params": params,
+                         "batch_stats": variables["batch_stats"]}, xt, zid)
+        return jnp.sum(y * w)
+
+    jg, jgx, jgz = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        variables["params"], jnp.asarray(xt), jnp.asarray(zid))
+    tx, tz = (torch.from_numpy(a).requires_grad_() for a in (xt, zid))
+    y, _ = tm(tx, tz)
+    torch.sum(y * torch.from_numpy(w)).backward()
+    want = {name: p.detach().numpy() for name, p in load_flax_variables(
+        copy.deepcopy(tm), {"params": jg,
+                            "batch_stats": variables["batch_stats"]})
+        .named_parameters()}
+    want["xt"], want["z_id"] = np.asarray(jgx), np.asarray(jgz)
+    got = {name: p.grad for name, p in tm.named_parameters()}
+    got["xt"], got["z_id"] = tx.grad, tz.grad
+    floor = 1e-6 * max(np.abs(g).max() for g in want.values())
+    for name, g in got.items():
+        assert g is not None, name
+        err = float(np.abs(g.numpy() - want[name]).max())
+        assert err <= 2e-2 * np.abs(want[name]).max() + floor, (name, err)
+
+
+def test_aeinet_fused_backward_raises(rng):
+    """AEINet(fused_aad=True) runs the inference-only fused AAD kernel
+    (its plain version on the CPU): a backward through it raises, on
+    every device, as JAX's Pallas call has no VJP."""
+    tm = init_weights(taei.AEINet("unet", num_blocks=1,
+                                  policy=FULL_PRECISION, width=1 / 16,
+                                  fused_aad=True),
+                      torch.Generator().manual_seed(0))
+    y, _ = tm(torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(
+        np.float32)), torch.from_numpy(rng.normal(0, 1, (1, 512)).astype(
+            np.float32)))
+    with pytest.raises(RuntimeError, match="fused_aad=False"):
+        y.sum().backward()

@@ -8,6 +8,7 @@ comparison is f32 (FULL_PRECISION on both sides) and held to 1e-4
 absolute: the same math, with convolution sums in another order.
 """
 
+import copy
 import os
 
 import jax
@@ -178,6 +179,48 @@ def test_student_seat_contract_and_jax_parity(student):
     assert got.shape == y.shape and np.isfinite(got).all()
     assert got.min() >= -1.0 - 1e-6 and got.max() <= 1.0 + 1e-6
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+def _grads_as_port(tmod, jgrads, extra=None):
+    """The JAX gradient tree laid out as `tmod`'s parameters: the bridge
+    maps each leaf as it maps the weights (transposes are linear)."""
+    twin = load_flax_variables(copy.deepcopy(tmod),
+                               {"params": jgrads, **(extra or {})})
+    return dict(twin.named_parameters())
+
+
+def test_srvgg_grads_match_jax():
+    """Gradients of x and of every conv weight, bias and PReLU slope of a
+    narrow SRVGG (8 features, 2 body convs, x2; its trunk is a Conv3x3
+    stack, each through S2's autograd op) against jax.grad of the JAX
+    SRVGG on the same weights, f32. Bound 1e-4 absolute and relative:
+    the same f32 sums in another order (loss O(10), 27-72 term convs)."""
+    rng = np.random.default_rng(5)
+    jm = jsrvgg.SRVGGNetCompact(num_feat=8, num_conv=2, upscale=2,
+                                policy=JFULL)
+    x = rng.uniform(0, 1, (2, 12, 12, 3)).astype(np.float32)
+    w = rng.standard_normal((2, 24, 24, 3)).astype(np.float32)
+    shapes = jax.eval_shape(jm.init, jax.random.key(0), jnp.asarray(x))
+    params = jax.tree.map(
+        lambda s: jnp.asarray(rng.normal(0, 0.3, s.shape), jnp.float32),
+        shapes)["params"]
+
+    def loss(params, x):
+        return jnp.sum(jm.apply({"params": params}, x) * w)
+
+    jg, jgx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    tm = load_flax_variables(
+        tsrvgg.SRVGGNetCompact(num_feat=8, num_conv=2, upscale=2,
+                               policy=FULL_PRECISION), {"params": params})
+    tx = _t(x).requires_grad_()
+    torch.sum(tm(tx) * _t(w)).backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=1e-4,
+                               atol=1e-4)
+    want = _grads_as_port(tm, jg)
+    assert len(want) == 2 * 4 + 3  # 4 convs (weight, bias), 3 slopes
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].detach().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("factor", [2, 3, 4])
