@@ -20,7 +20,9 @@ exits non-zero without its result lines:
               unet 2 blocks, bf16) on a chunk of 8 seeded 1080p frames:
               output shape, 21 K1 launches per call, a real blend, frames/s
   6. K2       HMMA counts of each tensor-core kernel in the built K2
-              and S2 libraries (cuobjdump -sass); flash attention
+              and S2 libraries and LDG.E.128 counts of each K3 kernel
+              (cuobjdump -sass; every vector-route K3 kernel must have
+              128-bit loads); flash attention
               forward, dq and dk/dv vs their plain versions at
               (8,8,1024|4096,64) bf16 causal and not and (8,8,4096,128)
               bf16 causal, (1,1,2560,64) causal f32 with q tiles of 48
@@ -30,10 +32,14 @@ exits non-zero without its result lines:
               each 16-bit case's out, dq, dk, dv against the f32 result
               beside aten's flash fwd+bwd; times beside SDPA, aten's
               flash backward and the bounds
-  7. K3       fused LayerNorm forward and backward vs plain at 8192x1024,
-              1000x768 and 37x8192, bf16 and f32; times, each call on
-              one of 8 input sets so it reads HBM, beside F.layer_norm /
-              its aten backward and the bytes bounds
+  7. K3       fused LayerNorm forward and backward vs plain at 8192x1024
+              and 32768x512 (bf16, f32), 8192x1024 float16, 1000x768,
+              37x8192, 1000x1000 (element accesses), 4x16384 and 16-bit
+              gammas; at the first five, each call on one of 8 input sets
+              so it reads HBM: call time (CUDA events around 20
+              back-to-back calls) and host us per call (no sync), the
+              same for F.layer_norm / its aten backward, the plain
+              versions and the bytes bounds (device times: phase 15)
   8. train    the slice's path at full width: MultiheadAttention (8 heads
               x 64, causal, norm_add) + MLP (2048, 512), bf16 compute, on
               seeded x (8,4096,512), cross-entropy, 3 ghost_adam steps:
@@ -66,6 +72,10 @@ exits non-zero without its result lines:
               student on its bundled weights, one backward in f32 and one
               in bf16 with S2 launched for every conv's dx, each as
               accurate as the plain path (against an f64 run)
+ 15. K3 dev   device time per kernel of phase 7's timed K3 cases and of
+              their library calls (torch.profiler; the backward's main
+              and reduction kernels apart), last, so that the
+              profiler's hooks time no other phase
 
 Each path (5, 8, 9, 13, 14) runs with every launch count set to 0 just
 before it and read just after; the counts of 5, 8, 9 and 13 go into the
@@ -118,12 +128,24 @@ K2_CASES = [(8, 8, 1024, 64, "bfloat16", False, 64, True, False),
             (2, 4, 1000, 64, "float16", True, 64, False, False),
             (2, 4, 1024, 128, "float16", False, 64, False, False),
             (1, 2, 384, 256, "float16", True, 64, False, False)]
-# K3 cases: (rows, h, dtype, timed)
+# K3 cases: (rows, h, dtype, gamma's dtype, timed): the apex-style
+# 8192 x 1024, the training block's LayerNorm (8 x 4096 tokens of 512),
+# float16, ragged rows, h = 1000 (element accesses), the wide route up
+# to h = 16384 and 16-bit gammas
+K3_CASES = [(8192, 1024, "bfloat16", "float32", True),
+            (8192, 1024, "float32", "float32", True),
+            (32768, 512, "bfloat16", "float32", True),
+            (32768, 512, "float32", "float32", True),
+            (8192, 1024, "float16", "float16", True),
+            (1000, 768, "bfloat16", "float32", False),
+            (1000, 768, "float32", "float32", False),
+            (37, 8192, "bfloat16", "float32", False),
+            (37, 8192, "float32", "float32", False),
+            (1000, 1000, "float16", "float32", False),
+            (4, 16384, "bfloat16", "bfloat16", False),
+            (1000, 768, "bfloat16", "float16", False)]
 # input sets the timed K3 cases rotate through (each call reads HBM)
 K3_SETS = 8
-K3_CASES = [(8192, 1024, "bfloat16", True), (8192, 1024, "float32", True),
-            (1000, 768, "bfloat16", False), (1000, 768, "float32", False),
-            (37, 8192, "bfloat16", False), (37, 8192, "float32", False)]
 # the training slice at full width, and cut down for CPU-vs-card parity
 TRAIN = dict(batch=8, seq=4096, heads=8, head_dim=64, hidden=2048, steps=3,
              lr=4e-4)
@@ -231,13 +253,45 @@ def phase_build():
             continue
         log(f"build: {name} in {report['seconds']:.2f} s: nvcc "
             f"{' '.join(report['cmd'][1:])}")
+        lines = report["ptxas"].splitlines()
+        if sum("entry function" in line for line in lines) > 60:
+            _ptxas_summary(lines)  # K3's instantiations: one line a kernel
+            continue
         # each kernel's name, registers and shared memory, and any spills
-        for line in report["ptxas"].splitlines():
+        for line in lines:
             nonzero_spill = "spill" in line and " 0 bytes spill" not in line
             if "entry function" in line or "Used" in line or nonzero_spill:
                 log(f"  ptxas: {line.strip()[:150]}")
     log(f"build: {len(_build.SOURCES)} sources, one nvcc each in parallel, "
         f"in {time.perf_counter() - t0:.2f} s")
+
+
+def _ptxas_summary(lines):
+    """Per kernel template of a library with many instantiations: how
+    many, their register range, and how many spill."""
+    import re
+
+    kinds, kind = {}, None
+    for line in lines:
+        m = re.search(r"entry function '_ZN(\w+)'", line)
+        if m:
+            # the nested name's length-prefixed parts: the last is the
+            # kernel's, before its template arguments
+            rest, name = m.group(1), None
+            while (part := re.match(r"(\d+)", rest)):
+                n, rest = int(part.group(1)), rest[part.end():]
+                name, rest = rest[:n], rest[n:]
+            kind = kinds.setdefault(name, {"regs": [], "spills": 0})
+        elif kind is not None and (m := re.search(r"Used (\d+) registers",
+                                                   line)):
+            kind["regs"].append(int(m.group(1)))
+        elif kind is not None and "spill" in line \
+                and " 0 bytes spill" not in line:
+            kind["spills"] += 1
+    for name, k in kinds.items():
+        log(f"  ptxas: {name}: {len(k['regs'])} kernels, "
+            f"{min(k['regs'])}-{max(k['regs'])} registers, "
+            f"{k['spills']} with spills")
 
 
 def _time_turns(fns, iters, device):
@@ -440,6 +494,12 @@ def phase_profile(pipe, frames, tgt, src, mp, device):
     phase_stages(pipe, frames, tgt, src, mp, device)
 
 
+def _dev_us(e):
+    """A profiler event's own device time, us."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
 def _profile(fn, device):
     """Run fn once under torch.profiler: wall, device busy share and the
     top device kernels by time."""
@@ -452,17 +512,12 @@ def _profile(fn, device):
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t
     events = prof.key_averages()
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in kernels)
+    busy = sum(_dev_us(e) for e in kernels)
     log(f"profile: wall {wall * 1e3:.1f} ms (profiled), device busy "
         f"{busy / 1e3:.1f} ms ({busy / 1e6 / wall:.1%})")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:25]:
-        log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:25]:
+        log(f"  {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
 def _stage(name, fn, device):
@@ -823,37 +878,55 @@ def _vs_f32(tag, q, k, v, do, causal, scale, results):
                              "backward allows")
 
 
-def phase_sass():
-    """HMMA/HGMMA instructions in each kernel of the built K2 and S2
-    libraries (cuobjdump -sass): every tensor-core kernel (K2's forward,
-    dq and dk/dv in bf16 and float16, S2's bf16 conv) must have some, the
-    FMA kernels none."""
+def _sass(lib):
+    """cuobjdump -sass of a built library: {mangled kernel name: its
+    instruction lines}."""
     import re
 
     from ghost_tpu_torch.ops.cuda import _build
 
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path(lib))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    fns, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            fns[fn] = []
+        elif fn is not None:
+            fns[fn].append(line)
+    return fns
+
+
+def phase_sass():
+    """HMMA/HGMMA instructions in each kernel of the built K2 and S2
+    libraries (cuobjdump -sass): every tensor-core kernel (K2's forward,
+    dq and dk/dv in bf16 and float16, S2's bf16 conv) must have some, the
+    FMA kernels none. Then the 128-bit global loads (LDG.E.128) of each
+    K3 kernel: every vector-route forward and backward kernel must have
+    some."""
+    import re
+
+    from ghost_tpu_torch.ops.cuda import _build
+
     counts = {}
     for lib, pattern in (
             ("flash_attention", r"(flash_(?:fwd|dq|dkv)(?:_mma)?_kernel)"),
             ("conv3x3", r"(conv3x3(?:_mma)?_kernel)")):
-        res = subprocess.run([str(cuobjdump), "-sass",
-                              str(_build._lib_path(lib))],
-                             capture_output=True, text=True, timeout=300,
-                             check=True)
-        fn = None
-        for line in res.stdout.splitlines():
-            m = re.search(r"Function : \S*?" + pattern + r"I(\w+?)EEv", line)
-            if m:
-                targs = (re.sub(r"^f(?=L|$)", "f32,", m.group(2))
-                         .replace("13__nv_bfloat16", "bf16,")
-                         .replace("6__half", "f16,")
-                         .replace("Lb1E", "vec").replace("Lb0E", "elem"))
-                targs = re.sub(r"Li(\d+)E", r"\1,", targs)
-                fn = f"{m.group(1)}<{targs.rstrip(',')}>"
-                counts[fn] = 0
-            elif fn is not None and re.search(r"\bH(?:G)?MMA\b", line):
-                counts[fn] += 1
+        for mangled, lines in _sass(lib).items():
+            m = re.search(r"\S*?" + pattern + r"I(\w+?)EEv", mangled)
+            if not m:
+                continue
+            targs = (re.sub(r"^f(?=L|$)", "f32,", m.group(2))
+                     .replace("13__nv_bfloat16", "bf16,")
+                     .replace("6__half", "f16,")
+                     .replace("Lb1E", "vec").replace("Lb0E", "elem"))
+            targs = re.sub(r"Li(\d+)E", r"\1,", targs)
+            fn = f"{m.group(1)}<{targs.rstrip(',')}>"
+            counts[fn] = sum(bool(re.search(r"\bH(?:G)?MMA\b", line))
+                             for line in lines)
         log(f"tensor-core instructions (HMMA/HGMMA in cuobjdump -sass of "
             f"{_build._lib_path(lib).name}):")
         for name, n in counts.items():
@@ -866,94 +939,224 @@ def phase_sass():
     if len(mma) != 34 or not all(mma.values()) or any(fma.values()):
         raise AssertionError(f"tensor-core kernels without HMMA, or FMA "
                              f"kernels with it: {counts}")
+    # K3: ln_{fwd,bwd}_kernel<T, G, W, NV, wide>; W > 1 is a vector route
+    routes = {}
+    for mangled, lines in _sass("layer_norm").items():
+        m = re.search(r"(ln_(?:fwd|bwd|bwd_reduce)_kernel)I(\w+)", mangled)
+        if not m:
+            continue
+        w = re.search(r"Li(\d+)E", m.group(2))
+        route = ("vector" if w and int(w.group(1)) > 1 else
+                 "element" if w else "-")
+        n = sum(bool(re.search(r"\bLDG\.E[\w.]*?\.128\b", line))
+                for line in lines)
+        routes.setdefault((m.group(1), route), []).append(n)
+    log(f"128-bit global loads (LDG.E.128 in cuobjdump -sass of "
+        f"{_build._lib_path('layer_norm').name}), per kernel:")
+    for (kind, route), ns in sorted(routes.items()):
+        log(f"  {kind} {route}: {len(ns)} kernels, LDG.E.128 {min(ns)}-"
+            f"{max(ns)} per kernel")
+    vec = [n for (kind, route), ns in routes.items() if route == "vector"
+           for n in ns]
+    # forward and backward: 3 warp-route widths + the wide route, x 3
+    # dtypes x 3 gamma dtypes
+    if len(vec) != 72 or not all(vec):
+        raise AssertionError(f"K3 vector kernels without 128-bit loads: "
+                             f"{routes}")
     return mma
 
 
-def phase_k3(device, card):
-    """K3 forward and backward against their plain versions, and times
-    at 8192 x 1024 beside F.layer_norm and the bounds."""
+def _kernel_name(key):
+    """A profiler kernel name without its namespaces' noise and its
+    argument list."""
+    import re
+
+    key = re.sub(r"\(anonymous namespace\)::", "", key)
+    key = re.sub(r"^void ", "", key)
+    return key.split("(")[0][:100]
+
+
+def _device_times(fn, iters, device):
+    """Each kernel's device us per call of fn, from torch.profiler over
+    `iters` calls after a warm one: {kernel name: us}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(device)
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e):
+            name = _kernel_name(e.key)
+            times[name] = times.get(name, 0.0) + _dev_us(e) / iters
+    if not times:
+        raise AssertionError("torch.profiler recorded no device time")
+    return times
+
+
+def _host_us(fn, iters, device):
+    """Host us per call of fn: time.perf_counter over `iters` calls with
+    no sync between them (the caller's cost to enqueue), after a warm
+    call; the device is drained after the clock stops."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize(device)
+    return t / iters * 1e6
+
+
+def _fmt_times(times):
+    return ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+
+
+def _k3_inputs(rows, h, dt, gdt, device):
+    """x, dy, gamma, beta of a K3 case, and the generator that made them
+    (seeded by the shape, so a later phase can make them again)."""
+    import torch
+
+    dtype, gdtype = getattr(torch, dt), getattr(torch, gdt)
+    g = torch.Generator(device=device).manual_seed(rows + h)
+    x = (torch.randn(rows, h, generator=g, device=device) * 2 + 1).to(dtype)
+    dy = torch.randn(rows, h, generator=g, device=device).to(dtype)
+    gamma = torch.randn(h, generator=g, device=device).to(gdtype)
+    beta = torch.randn(h, generator=g, device=device).to(gdtype)
+    return x, dy, gamma, beta, g
+
+
+def _k3_timed(rows, h, dt, gdt, device):
+    """The timed calls of a K3 case on K3_SETS input sets, each call on the
+    next, so that every call reads its inputs from HBM (all of them,
+    >= 268 MB, overflow the 50 MB L2, where one set of 17-67 MB would stay
+    between calls): {name: (plain, kernel, library, (bound ms, by))},
+    each a no-argument call."""
     import torch
     import torch.nn.functional as F
 
     from ghost_tpu_torch.ops.cuda import layer_norm as L
 
+    x, _, gamma, beta, g = _k3_inputs(rows, h, dt, gdt, device)
+    dtype = x.dtype
+    gl, bl = gamma.to(dtype), beta.to(dtype)
+    sets = []
+    for _ in range(K3_SETS):
+        xs = (torch.randn(rows, h, generator=g, device=device) * 2 + 1).to(dtype)
+        dys = torch.randn(rows, h, generator=g, device=device).to(dtype)
+        _, ms, rs = L.fused_layer_norm_fwd(xs, gamma, beta)
+        _, ml, rl = torch.ops.aten.native_layer_norm(xs, [h], gl, bl, 1e-5)
+        sets.append((xs, dys, ms, rs, ml, rl))
+    xb = rows * h * x.element_size()
+    gb = h * gamma.element_size()
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    fns = {
+        "fused_layer_norm_fwd": (
+            lambda xs, dys, ms, rs, ml, rl: L.layer_norm_fwd_plain(
+                xs, gamma, beta),
+            lambda xs, dys, ms, rs, ml, rl: L.fused_layer_norm_fwd(
+                xs, gamma, beta),
+            lambda xs, dys, ms, rs, ml, rl: F.layer_norm(xs, (h,), gl, bl),
+            _bound(2 * xb + 2 * gb + 2 * rows * 4, 8 * rows * h, peak)),
+        "fused_layer_norm_bwd": (
+            lambda xs, dys, ms, rs, ml, rl: L.layer_norm_bwd_plain(
+                xs, gamma, ms, rs, dys),
+            lambda xs, dys, ms, rs, ml, rl: L.fused_layer_norm_bwd(
+                xs, gamma, ms, rs, dys),
+            lambda xs, dys, ms, rs, ml, rl:
+                torch.ops.aten.native_layer_norm_backward(
+                    dys, xs, [h], ml, rl, gl, bl, [True, True, True]),
+            _bound(3 * xb + 3 * gb + 2 * rows * 4, 12 * rows * h, peak)),
+    }
+    return {name: (_rotating(plain, sets), _rotating(kern, sets),
+                   _rotating(lib, sets), bound)
+            for name, (plain, kern, lib, bound) in fns.items()}
+
+
+def phase_k3(device, card):
+    """K3 forward and backward against their plain versions at every
+    K3_CASES shape; for the timed ones, the call time (CUDA events around
+    20 back-to-back calls) and the wrapper's host us per call, beside
+    F.layer_norm / aten's backward (the same two), the plain versions and
+    the bounds. Device times come last (phase_k3_device)."""
+    import torch
+
+    from ghost_tpu_torch.ops.cuda import layer_norm as L
+
     worst, main = {}, {}
     log(f"K3 fused LayerNorm vs plain ({card}):")
-    for rows, h, dt, timed in K3_CASES:
-        dtype = getattr(torch, dt)
-        g = torch.Generator(device=device).manual_seed(rows + h)
-        x = (torch.randn(rows, h, generator=g, device=device) * 2 + 1).to(dtype)
-        dy = torch.randn(rows, h, generator=g, device=device).to(dtype)
-        gamma = torch.randn(h, generator=g, device=device)
-        beta = torch.randn(h, generator=g, device=device)
+    for rows, h, dt, gdt, timed in K3_CASES:
+        x, dy, gamma, beta, _ = _k3_inputs(rows, h, dt, gdt, device)
         y, mean, rstd = L.fused_layer_norm_fwd(x, gamma, beta)
         dx, dg, db = L.fused_layer_norm_bwd(x, gamma, mean, rstd, dy)
         torch.cuda.synchronize(device)
         ref = L.layer_norm_fwd_plain(x, gamma, beta)
         want = L.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
-        errs = [_close("fused_layer_norm_fwd", y, ref[0], dtype, worst),
-                _close("fused_layer_norm_fwd", mean, ref[1], torch.float32,
+        f32 = torch.float32
+        errs = [_close("fused_layer_norm_fwd", y, ref[0], x.dtype, worst),
+                _close("fused_layer_norm_fwd", mean, ref[1], f32, worst),
+                _close("fused_layer_norm_fwd", rstd, ref[2], f32, worst),
+                _close("fused_layer_norm_bwd", dx, want[0], x.dtype, worst),
+                _close("fused_layer_norm_bwd", dg, want[1], gamma.dtype,
                        worst),
-                _close("fused_layer_norm_fwd", rstd, ref[2], torch.float32,
-                       worst),
-                _close("fused_layer_norm_bwd", dx, want[0], dtype, worst),
-                _close("fused_layer_norm_bwd", dg, want[1], torch.float32,
-                       worst),
-                _close("fused_layer_norm_bwd", db, want[2], torch.float32,
+                _close("fused_layer_norm_bwd", db, want[2], gamma.dtype,
                        worst)]
-        tag = f"({rows},{h}) {dt}"
+        tag = f"({rows},{h}) {dt} gamma {gdt}"
         log(f"  {tag}: max err y {errs[0]:.2e} mean {errs[1]:.2e} rstd "
             f"{errs[2]:.2e} dx {errs[3]:.2e} dgamma {errs[4]:.2e} dbeta "
             f"{errs[5]:.2e} (within bound)")
         if not timed:
             continue
-        gl, bl = gamma.to(dtype), beta.to(dtype)
-        # K3_SETS input sets, each call on the next, so that every call
-        # reads its inputs from HBM: all of them (>= 268 MB) overflow the
-        # 50 MB L2, where one set (17-34 MB) would stay between calls
-        sets = []
-        for _ in range(K3_SETS):
-            xs = (torch.randn(rows, h, generator=g, device=device) * 2
-                  + 1).to(dtype)
-            dys = torch.randn(rows, h, generator=g, device=device).to(dtype)
-            _, ms, rs = L.fused_layer_norm_fwd(xs, gamma, beta)
-            _, ml, rl = torch.ops.aten.native_layer_norm(xs, [h], gl, bl, 1e-5)
-            sets.append((xs, dys, ms, rs, ml, rl))
-        xb = rows * h * x.element_size()
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-        fns = {
-            "fused_layer_norm_fwd": (
-                lambda xs, dys, ms, rs, ml, rl: L.layer_norm_fwd_plain(
-                    xs, gamma, beta),
-                lambda xs, dys, ms, rs, ml, rl: L.fused_layer_norm_fwd(
-                    xs, gamma, beta),
-                lambda xs, dys, ms, rs, ml, rl: F.layer_norm(xs, (h,), gl, bl),
-                _bound(2 * xb + 2 * h * 4 + 2 * rows * 4, 8 * rows * h, peak)),
-            "fused_layer_norm_bwd": (
-                lambda xs, dys, ms, rs, ml, rl: L.layer_norm_bwd_plain(
-                    xs, gamma, ms, rs, dys),
-                lambda xs, dys, ms, rs, ml, rl: L.fused_layer_norm_bwd(
-                    xs, gamma, ms, rs, dys),
-                lambda xs, dys, ms, rs, ml, rl:
-                    torch.ops.aten.native_layer_norm_backward(
-                        dys, xs, [h], ml, rl, gl, bl, [True, True, True]),
-                _bound(3 * xb + 3 * h * 4 + 2 * rows * 4, 12 * rows * h,
-                       peak)),
-        }
-        for name, (plain, kern, lib, (bound, by)) in fns.items():
-            plain_ms, kern_ms = _time_turns(
-                (_rotating(plain, sets), _rotating(kern, sets)), 20, device)
-            lib_ms = _time_one(_rotating(lib, sets), 20, device)
-            log(f"  {tag} {name}: kernel {kern_ms * 1e3:.1f} us, plain "
-                f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, "
-                f"bound {bound * 1e3:.1f} us ({by})")
-            if dtype == torch.bfloat16:
-                main[name] = dict(ms=kern_ms, plain_ms=plain_ms,
-                                  library_ms=lib_ms, bound_ms=bound,
-                                  bound_by=by, library_call=LIBRARY[name])
+        for name, (plain, kern, lib, (bound, by)) in _k3_timed(
+                rows, h, dt, gdt, device).items():
+            plain_ms, call_ms = _time_turns((plain, kern), 20, device)
+            lib_call_ms = _time_one(lib, 20, device)
+            host, lib_host = (_host_us(kern, 20, device),
+                              _host_us(lib, 20, device))
+            log(f"  {tag} {name}: call {call_ms * 1e3:.1f} us, host "
+                f"{host:.1f} us/call; library call {lib_call_ms * 1e3:.1f} "
+                f"us, host {lib_host:.1f} us/call; plain "
+                f"{plain_ms * 1e3:.1f} us; bound {bound * 1e3:.1f} us ({by})")
+            if (rows, h, dt) == (8192, 1024, "bfloat16"):
+                main[name] = dict(call_ms=call_ms, plain_ms=plain_ms,
+                                  library_call_ms=lib_call_ms,
+                                  bound_ms=bound, bound_by=by,
+                                  library_call=LIBRARY[name])
     for name in main:
         main[name]["max_abs_err"] = worst[name]
     return main
+
+
+def phase_k3_device(device, card, main):
+    """Device time per kernel of each timed K3 case and of its library
+    call, from torch.profiler (the backward's main and reduction kernels
+    apart). Runs after every other phase: a profiler session can leave
+    the host slower for the rest of the process, which would move the
+    host-bound numbers of the later phases. Sets main's ms and
+    library_ms (8192 x 1024 bf16)."""
+    log(f"K3 device times (torch.profiler, {card}):")
+    for rows, h, dt, gdt, timed in K3_CASES:
+        if not timed:
+            continue
+        tag = f"({rows},{h}) {dt} gamma {gdt}"
+        for name, (_, kern, lib, (bound, by)) in _k3_timed(
+                rows, h, dt, gdt, device).items():
+            dev, lib_dev = (_device_times(kern, 20, device),
+                            _device_times(lib, 20, device))
+            dev_ms, lib_ms = (sum(dev.values()) / 1e3,
+                              sum(lib_dev.values()) / 1e3)
+            log(f"  {tag} {name}: device {dev_ms * 1e3:.1f} us "
+                f"({_fmt_times(dev)}), {bound / dev_ms:.0%} of the "
+                f"{bound * 1e3:.1f} us bound ({by}); library device "
+                f"{lib_ms * 1e3:.1f} us ({_fmt_times(lib_dev)})")
+            if (rows, h, dt) == (8192, 1024, "bfloat16"):
+                main[name].update(ms=dev_ms, library_ms=lib_ms)
 
 
 def phase_k3_path(device):
@@ -1691,6 +1894,7 @@ def main(argv):
     launches["conv3x3"] = phase_video(device, card,
                                       profile="--profile" in argv)
     phase_grads(device, card)
+    phase_k3_device(device, card, stats)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1699,7 +1903,11 @@ def main(argv):
                         "replaces": replaces, "launches": launches[name],
                         **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by",
-                                              "library_ms", "library_call")}})
+                                              "library_ms", "library_call")},
+                        # K3: ms/library_ms are device times, these the
+                        # CUDA-event times of back-to-back calls
+                        **{k: st[k] for k in ("call_ms", "library_call_ms")
+                           if k in st}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

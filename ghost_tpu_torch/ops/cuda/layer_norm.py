@@ -11,24 +11,31 @@ kernels or raise, and their `.launches` count the calls that launched.
 The kernels read rows of contiguous memory: on the card the wrappers
 copy a non-contiguous x (and dy) into that layout first, so any layout
 is taken, as by the JAX function, and the gradient comes back in x's
-shape. The JAX row-block fitting (`_fit_rows`, `block_rows`) tunes TPU
-VMEM and has no counterpart: the forward runs one block per row, the backward a
-fixed grid of row chunks.
+shape. x (and dy) and gamma may each be float32, bfloat16 or float16;
+gamma and beta are read in their own dtype. The JAX row-block fitting
+(`_fit_rows`, `block_rows`) tunes TPU VMEM and has no counterpart: the
+kernels pick their route from h and alignment (`csrc/layer_norm.cu`).
+
+The wrappers' host work per call is what a launch needs and little more
+(it competes with the kernels' ~10-30 us at 8192 x 1024, PERF.md): the
+library's entry points and argtypes are resolved once, the backward's
+grid is cached per (device, dtypes, h), no cast runs for a 16-bit gamma,
+and the device context is entered only when x is not on the current
+device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ghost_tpu_torch.ops.cuda._build import load_library
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the backward keeps two f32 rows of dgamma/dbeta sums in shared memory
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# widest row: 512 threads of 32 columns each (`csrc/layer_norm.cu`)
 H_MAX = 16384
-# backward blocks: two per SM of the H100's 132, each a chunk of rows
-BWD_BLOCKS = 264
 
 
 def layer_norm_plain(x, gamma, beta, eps: float = 1e-5):
@@ -65,95 +72,145 @@ def layer_norm_bwd_plain(x, gamma, mean, rstd, dy):
 
 
 def _check(x, gamma, *vectors):
-    if x.dtype not in _DTYPE_CODE or gamma.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_layer_norm takes float32 or bfloat16, got x "
-                        f"{x.dtype}, gamma {gamma.dtype}")
+    """(rows, h, dtype code, gamma's code) of a contiguous x that the
+    kernels take, with contiguous gamma (and beta) (h,) on x's device;
+    raises on anything else. Cheap calls only: it runs on every launch."""
+    code, gcode = _DTYPE_CODE.get(x.dtype), _DTYPE_CODE.get(gamma.dtype)
+    if code is None or gcode is None:
+        raise TypeError(f"fused_layer_norm takes float32, bfloat16 or "
+                        f"float16, got x {x.dtype}, gamma {gamma.dtype}")
     h = x.shape[-1]
-    if not x.is_contiguous() or h > H_MAX:
-        raise ValueError(f"x must be contiguous with h <= {H_MAX}; got "
+    if not 0 < h <= H_MAX or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous with 0 < h <= {H_MAX}; got "
                          f"shape {tuple(x.shape)} strides {x.stride()}")
-    rows = x.numel() // max(h, 1)
+    rows = x.numel() // h
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} rows exceed the kernels' grid")
+    index = x.get_device()
     for t in (gamma, *vectors):
-        if t.device != x.device:
-            raise ValueError(f"gamma/beta on {t.device}, x on {x.device}")
-        if tuple(t.shape) != (h,):
-            raise ValueError(f"gamma/beta must be ({h},), got {tuple(t.shape)}")
-    return rows, h
+        if t.get_device() != index or t.shape != (h,) or not t.is_contiguous():
+            raise ValueError(f"gamma/beta must be contiguous ({h},) on "
+                             f"{x.device}, got {tuple(t.shape)} on {t.device}")
+    return rows, h, code, gcode
 
 
-def _fn(name, argtypes):
-    fn = getattr(load_library("layer_norm"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+class _Launchers:
+    """The library's entry points, with their argtypes set, resolved
+    once per process (on the first CUDA call)."""
+
+    def __init__(self):
+        lib = load_library("layer_norm")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.fwd = lib.layer_norm_fwd_launch
+        self.fwd.argtypes = [i, i, p, p, p, p, p, p, ll, i, ctypes.c_float, p]
+        self.bwd = lib.layer_norm_bwd_launch
+        self.bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, ll, i, i, p]
+        self.grid = lib.layer_norm_bwd_grid
+        self.grid.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        for fn in (self.fwd, self.bwd, self.grid):
+            fn.restype = ctypes.c_int
+        # (device, dtype code, gamma's code, h) -> (blocks resident at
+        # once, rows a block takes at a time) of the backward
+        self.bwd_grids = {}
+
+    def bwd_blocks(self, index, code, gcode, h, rows):
+        """The backward's grid: n_blocks = min(resident, ceil(rows / rows
+        a block takes)), queried from the library once per key."""
+        grid = self.bwd_grids.get((index, code, gcode, h))
+        if grid is None:
+            most, per = ctypes.c_int(), ctypes.c_int()
+            with torch.cuda.device(index):
+                rc = self.grid(code, gcode, h, ctypes.byref(most),
+                               ctypes.byref(per))
+            if rc != 0:
+                raise RuntimeError(f"layer_norm_bwd_grid failed: cudaError "
+                                   f"{rc}")
+            grid = self.bwd_grids[index, code, gcode, h] = (most.value,
+                                                            per.value)
+        return min(grid[0], -(-rows // grid[1]))
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+@functools.cache
+def _launchers():
+    return _Launchers()
+
+
+def _launch(index, name, fn, *args):
+    """fn(*args, stream) on device `index` and its current stream; the
+    device context is entered only when `index` is not current. Raises on
+    a launch error."""
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(index, name, fn, *args)
+    # the stream's raw handle, as Triton's launcher reads it: no Stream
+    # object is built on every call
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: cudaError {rc}")
+
+
+def _no_kernel(x):
+    if x.device.type != "cpu":
+        raise ValueError(f"fused_layer_norm has no kernel for {x.device}")
 
 
 def fused_layer_norm_fwd(x, gamma, beta, eps: float = 1e-5):
-    """Forward kernel: (y in x's dtype, mean (rows,) f32, rstd (rows,) f32)."""
-    if x.device.type == "cpu":
+    """Forward kernel: (y in x's dtype, mean (rows,) f32, rstd (rows,) f32).
+    gamma and beta are read in their own dtype; where the two differ both
+    are widened to f32 first (exact)."""
+    if not x.is_cuda:
+        _no_kernel(x)
         return layer_norm_fwd_plain(x, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layer_norm has no kernel for {x.device}")
-    x = x.contiguous()
-    rows, h = _check(x, gamma, beta)
-    g32 = gamma.float().contiguous()
-    b32 = beta.float().contiguous()
+    x, gamma, beta = x.contiguous(), gamma.contiguous(), beta.contiguous()
+    if beta.dtype != gamma.dtype:
+        gamma, beta = gamma.float(), beta.float()
+    rows, h, code, gcode = _check(x, gamma, beta)
     y = torch.empty_like(x)
-    stats = torch.empty((2, rows), dtype=torch.float32, device=x.device)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = _fn("layer_norm_fwd_launch",
-             [i, p, p, p, p, p, p, ll, i, ctypes.c_float, p])
-    with torch.cuda.device(x.device):
-        rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), g32.data_ptr(),
-                b32.data_ptr(), y.data_ptr(), stats[0].data_ptr(),
-                stats[1].data_ptr(), rows, h, eps, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"layer_norm_fwd_launch failed: cudaError {rc}")
+    mean = x.new_empty(rows, dtype=torch.float32)
+    rstd = x.new_empty(rows, dtype=torch.float32)
+    _launch(x.get_device(), "layer_norm_fwd_launch", _launchers().fwd, code,
+            gcode, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows, h, eps)
     fused_layer_norm_fwd.launches += 1
-    return y, stats[0], stats[1]
+    return y, mean, rstd
 
 
 def fused_layer_norm_bwd(x, gamma, mean, rstd, dy):
     """Backward kernels: (dx in dy's dtype, dgamma, dbeta in gamma's
     dtype). Per-block partial sums of dgamma/dbeta go to an f32
-    (blocks, h) scratch that a second kernel adds up in block order."""
-    if x.device.type == "cpu":
+    (blocks, h) scratch that a second kernel adds up in a fixed order.
+    Where dy's dtype differs from x's, both are widened to f32 (exact) and
+    dx is rounded once to dy's dtype."""
+    if not x.is_cuda:
+        _no_kernel(x)
         return layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layer_norm has no kernel for {x.device}")
-    x, dy = x.contiguous(), dy.contiguous()
-    rows, h = _check(x, gamma)
-    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
-        raise ValueError("dy must be contiguous with x's shape and dtype")
+    out_dtype = dy.dtype
+    if dy.dtype != x.dtype:
+        x, dy = x.float(), dy.float()
+    x, dy, gamma = x.contiguous(), dy.contiguous(), gamma.contiguous()
+    rows, h, code, gcode = _check(x, gamma)
+    index = x.get_device()
+    if dy.shape != x.shape or dy.get_device() != index:
+        raise ValueError("dy must have x's shape and device")
     for t in (mean, rstd):
-        if t.dtype != torch.float32 or t.numel() != rows or not t.is_contiguous():
-            raise ValueError("mean/rstd must be contiguous float32 (rows,)")
-    rpb = -(-rows // min(rows, BWD_BLOCKS)) if rows else 1
-    n_blocks = -(-rows // rpb)
-    g32 = gamma.float().contiguous()
+        if (t.dtype != torch.float32 or t.numel() != rows
+                or not t.is_contiguous() or t.get_device() != index):
+            raise ValueError("mean/rstd must be contiguous float32 (rows,) "
+                             "on x's device")
+    launchers = _launchers()
+    n_blocks = launchers.bwd_blocks(index, code, gcode, h, rows)
     dx = torch.empty_like(dy)
-    part = torch.empty((2, n_blocks, h), dtype=torch.float32, device=x.device)
-    dgb = torch.empty((2, h), dtype=gamma.dtype, device=x.device)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = _fn("layer_norm_bwd_launch",
-             [i, i, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, p])
-    with torch.cuda.device(x.device):
-        rc = fn(_DTYPE_CODE[x.dtype], _DTYPE_CODE[gamma.dtype], x.data_ptr(),
-                dy.data_ptr(), g32.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
-                part[1].data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
-                rows, h, rpb, n_blocks, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"layer_norm_bwd_launch failed: cudaError {rc}")
+    part = x.new_empty((2, n_blocks, h), dtype=torch.float32)
+    dgamma = gamma.new_empty(h)
+    dbeta = gamma.new_empty(h)
+    _launch(index, "layer_norm_bwd_launch", launchers.bwd, code, gcode,
+            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), rows, h, n_blocks)
     fused_layer_norm_bwd.launches += 1
-    return dx, dgb[0], dgb[1]
+    if dx.dtype != out_dtype:
+        dx = dx.to(out_dtype)
+    return dx, dgamma, dbeta
 
 
 fused_layer_norm_fwd.launches = 0
