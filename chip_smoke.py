@@ -11,9 +11,13 @@ exits non-zero without its result lines:
   1. device   card name, count, power limit, torch/CUDA versions, TF32 off
   2. build    nvcc builds K1, K2, K3 and S2 for sm_90a, one process per
               source, all at once
-  3. K1       kernel vs its plain PyTorch version at the 8 AAD shapes of
-              the full-width generator at B=8, bf16 and f32: error bound
-              and CUDA-event times (turns plain, kernel, kernel, plain)
+  3. K1       kernels vs their plain PyTorch version at the 8 AAD shapes
+              of the full-width generator at B=8, bf16, f32 and float16:
+              error bound; per shape, each call on the next of input sets
+              past the L2, the call time (CUDA events, turns plain,
+              kernel, kernel, plain) and host us per call (no sync); the
+              small maps (one launch) also through the split route; the
+              sums per generator pass (device times: phase 16)
   4. parity   the test config (tests/test_torch_pipeline.py), f32, same
               weights and frames, CPU (plain AAD) vs card (kernel)
   5. main     `_detect_swap` at full width (SCRFD 640, iresnet100, AEI-Net
@@ -76,6 +80,10 @@ exits non-zero without its result lines:
               their library calls (torch.profiler; the backward's main
               and reduction kernels apart), last, so that the
               profiler's hooks time no other phase
+ 16. K1 dev   device time per kernel of K1 at phase 3's shapes, in all
+              three dtypes (torch.profiler), and the kernels that run just
+              before each K1 call in a full-width bf16 generator pass (no
+              copy of h may run there)
 
 Each path (5, 8, 9, 13, 14) runs with every launch count set to 0 just
 before it and read just after; the counts of 5, 8, 9 and 13 go into the
@@ -87,6 +95,7 @@ The last two lines are the kernels JSON and
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -101,6 +110,11 @@ from pathlib import Path
 AAD_BLOCKS = [(2 ** (k + 1), c, 2 if k < 3 else 3)
               for k, c in enumerate((1024, 1024, 1024, 1024, 512, 256, 128, 64))]
 AAD_B = 8
+K1_DTYPES = ("bfloat16", "float32", "float16")
+# K1 per bf16 generator pass in the first design of csrc/aad_modulate.cu
+# (a (B, C/32) statistics grid, 2-byte loads; CUDA events on reused
+# inputs), NVIDIA H100 80GB HBM3 at 700.00 W
+K1_FIRST_DESIGN_PASS_MS = 3.689
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same sheet
 F32_FLOPS = 67e12          # f32 outside the tensor cores, same sheet
@@ -312,69 +326,219 @@ def _time_turns(fns, iters, device):
     return total[0] / 2, total[1] / 2
 
 
-def phase_k1(device, card):
-    """K1 against its plain version at the generator's shapes."""
+def _k1_sets(hw, c, dt, device):
+    """Input sets of a K1 generator shape at B=AAD_B, seeded by the shape
+    (so a later phase makes the same ones): as many as it takes for the
+    sets to hold S2_ROTATE_BYTES, so that timed calls, each on the next
+    set, read their inputs from HBM and not from the 50 MB L2."""
+    import torch
+
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=device).manual_seed(hw * 4096 + c)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=device)
+
+    mk, mb = rnd(1, c, 1, 1) / c ** 0.5, rnd(1)
+    per_set = 3 * AAD_B * hw * hw * c * dtype.itemsize
+    sets = []
+    for _ in range(max(1, math.ceil(S2_ROTATE_BYTES / per_set))):
+        h = (rnd(AAD_B, hw, hw, c) * 2 + 1).to(dtype)
+        packed = rnd(AAD_B, hw, hw, 2 * c).to(dtype)
+        sets.append((h, packed[..., :c], packed[..., c:],
+                     rnd(AAD_B, 2 * c).to(dtype), mk, mb))
+    return sets
+
+
+def _k1_bound_ms(args):
+    """The function's least traffic over the HBM rate: h, gamma_attr and
+    beta_attr read once, the output written once, the id and mask
+    vectors read once."""
+    h = args[0]
+    nbytes = (4 * h.numel() * h.element_size()
+              + sum(a.numel() * a.element_size() for a in args[3:]))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _k1_error(args, dt):
+    """(max abs error, within bound) of K1 against its plain version:
+    0.1 + 2^-6 |ref| in the 16-bit types (the JAX kernel test's bf16
+    bound plus two bf16 ulps at the value's magnitude), 1e-4 + 1e-5 |ref|
+    in f32."""
     import torch
 
     from ghost_tpu_torch.ops.cuda.aad import aad_modulate, aad_modulate_plain
 
-    g = torch.Generator(device=device).manual_seed(0)
+    out = aad_modulate(*args)
+    ref = aad_modulate_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    if dt == "float32":
+        bound = 1e-4 + 1e-5 * ref.float().abs()
+    else:
+        bound = 0.1 + 2 ** -6 * ref.float().abs()
+    return float(err.max()), bool((err <= bound).all())
+
+
+def _k1_small(hw, c):
+    """Whether a generator shape takes K1's one-launch route."""
+    from ghost_tpu_torch.ops.cuda import aad
+
+    return hw * hw <= aad.SMALL_ROWS and c <= aad.SMALL_C_MAX
+
+
+@contextlib.contextmanager
+def _k1_split_route():
+    """K1 with its one-launch route off: small maps take the split route."""
+    from ghost_tpu_torch.ops.cuda import aad
+
+    keep = aad.SMALL_ROWS
+    aad.SMALL_ROWS = 0
+    try:
+        yield
+    finally:
+        aad.SMALL_ROWS = keep
+
+
+def phase_k1(device, card):
+    """K1 against its plain version at the 8 AAD shapes of the generator
+    in bf16, f32 and float16; per shape the call time (CUDA events around
+    20 back-to-back calls, turns plain, kernel, kernel, plain, each call
+    on the next of input sets past the L2) and the host us per call (no
+    sync); the small maps also through the split route. Device times come
+    last (phase_k1_device)."""
+    import torch
+
+    from ghost_tpu_torch.ops.cuda.aad import aad_modulate, aad_modulate_plain
+
     max_err = 0.0
-    weighted = {"kernel": 0.0, "plain": 0.0, "bound": 0.0}
+    passes = {}
     log(f"K1 aad_modulate vs plain, B={AAD_B} ({card}):")
     log("  dtype    shape              layers  err      bound-ok  plain_us  "
-        "kernel_us  bytes_bound_us")
-    for dtype in (torch.bfloat16, torch.float32):
+        "call_us  host_us  bytes_bound_us  sets")
+    for dt in K1_DTYPES:
+        weighted = passes[dt] = {"call": 0.0, "plain": 0.0, "bound": 0.0}
         for hw, c, layers in AAD_BLOCKS:
-            def rnd(*s):
-                return torch.randn(*s, generator=g, device=device)
-            h = (rnd(AAD_B, hw, hw, c) * 2 + 1).to(dtype)
-            packed = rnd(AAD_B, hw, hw, 2 * c).to(dtype)
-            args = (h, packed[..., :c], packed[..., c:],
-                    rnd(AAD_B, 2 * c).to(dtype), rnd(1, c, 1, 1) / c ** 0.5,
-                    rnd(1))
-            out = aad_modulate(*args)
-            ref = aad_modulate_plain(*args)
-            torch.cuda.synchronize(device)
-            err = (out.float() - ref.float()).abs()
-            if dtype == torch.bfloat16:
-                # 0.1 absolute (the JAX kernel test's bf16 bound) plus two
-                # bf16 ulps at the value's magnitude
-                bound = 0.1 + 2 ** -6 * ref.float().abs()
-            else:
-                bound = 1e-4 + 1e-5 * ref.float().abs()
-            ok = bool((err <= bound).all())
-            e = float(err.max())
+            sets = _k1_sets(hw, c, dt, device)
+            args = sets[0]
+            e, ok = _k1_error(args, dt)
             max_err = max(max_err, e)
+            kern = _rotating(aad_modulate, sets)
+            plain = _rotating(aad_modulate_plain, sets)
             for _ in range(3):
-                aad_modulate(*args)
-                aad_modulate_plain(*args)
-            plain_ms, kern_ms = _time_turns(
-                (lambda: aad_modulate_plain(*args), lambda: aad_modulate(*args)),
-                20, device)
-            # the function's least traffic: h, gamma_attr and beta_attr
-            # read once, the output written once, plus the id and mask
-            # vectors
-            nbytes = (4 * h.numel() * h.element_size()
-                      + sum(a.numel() * a.element_size() for a in args[3:]))
-            name = str(dtype).replace("torch.", "")
+                kern()
+                plain()
+            plain_ms, call_ms = _time_turns((plain, kern), 20, device)
+            host = _host_us(kern, 20, device)
+            bound_ms = _k1_bound_ms(args)
             shape = f"({AAD_B},{hw},{hw},{c})"
-            log(f"  {name:8s} {shape:18s} {layers:6d}  {e:.3e}  {ok!s:8s}  "
-                f"{plain_ms * 1e3:8.1f}  "
-                f"{kern_ms * 1e3:9.1f}  {nbytes / HBM_BYTES_PER_S * 1e6:10.1f}")
-            if dtype == torch.bfloat16:
-                weighted["kernel"] += layers * kern_ms
-                weighted["plain"] += layers * plain_ms
-                weighted["bound"] += layers * nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"  {dt:8s} {shape:18s} {layers:6d}  {e:.3e}  {ok!s:8s}  "
+                f"{plain_ms * 1e3:8.1f}  {call_ms * 1e3:7.1f}  {host:7.1f}  "
+                f"{bound_ms * 1e3:14.1f}  {len(sets)}")
+            if _k1_small(hw, c):
+                with _k1_split_route():
+                    e2, ok2 = _k1_error(args, dt)
+                    split_ms = _time_one(kern, 20, device)
+                    split_host = _host_us(kern, 20, device)
+                max_err = max(max_err, e2)
+                ok = ok and ok2
+                log(f"  {'':8s} {'':18s} the split route: err {e2:.3e} "
+                    f"{ok2}, call {split_ms * 1e3:.1f} us, host "
+                    f"{split_host:.1f} us (the one-launch route above)")
+            weighted["call"] += layers * call_ms
+            weighted["plain"] += layers * plain_ms
+            weighted["bound"] += layers * bound_ms
             if not ok:
-                raise AssertionError(f"K1 disagrees with plain at {name} "
-                                     f"({AAD_B},{hw},{hw},{c}): max err {e}")
-    log(f"K1 per 8-frame generator pass (21 layers, bf16): kernel "
-        f"{weighted['kernel']:.3f} ms, plain {weighted['plain']:.3f} ms, "
-        f"bytes bound {weighted['bound']:.3f} ms ({card})")
-    return dict(max_abs_err=max_err, ms=weighted["kernel"],
-                plain_ms=weighted["plain"], bound_ms=weighted["bound"],
-                bound_by="bytes", library_ms=None, library_call=None)
+                raise AssertionError(f"K1 disagrees with plain at {dt} "
+                                     f"{shape}")
+            del sets, args, kern, plain
+        torch.cuda.empty_cache()
+    for dt, w in passes.items():
+        log(f"K1 per 8-frame generator pass (21 layers, {dt}): call "
+            f"{w['call']:.3f} ms, plain {w['plain']:.3f} ms, bytes bound "
+            f"{w['bound']:.3f} ms" + (f" (the first design: "
+                                      f"{K1_FIRST_DESIGN_PASS_MS} ms)"
+                                      if dt == "bfloat16" else "")
+            + f" ({card})")
+    w = passes["bfloat16"]
+    return dict(max_abs_err=max_err, call_ms=w["call"], plain_ms=w["plain"],
+                bound_ms=w["bound"], bound_by="bytes", library_ms=None,
+                library_call=None)
+
+
+def phase_k1_device(device, card, stats):
+    """Device time per kernel of K1 at each generator shape (torch.profiler
+    over 20 calls on the rotating input sets of phase 3), and the kernels
+    that run just before each K1 call in one full-width generator pass
+    (bf16, fused AAD): no copy of h may run there. Runs after every other
+    phase, beside phase 15. Sets stats' ms (per pass, bf16)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY
+    from ghost_tpu_torch.models.aei import AEINet
+    from ghost_tpu_torch.nn.layers import init_weights
+    from ghost_tpu_torch.ops.cuda.aad import aad_modulate
+
+    log(f"K1 device times (torch.profiler, {card}):")
+    for dt in K1_DTYPES:
+        per_pass = 0.0
+        for hw, c, layers in AAD_BLOCKS:
+            sets = _k1_sets(hw, c, dt, device)
+            kern = _rotating(aad_modulate, sets)
+            small = _k1_small(hw, c)
+            dev = _device_times(kern, 20, device,
+                                kernels_per_call=1 if small else 3)
+            dev_ms = sum(dev.values()) / 1e3
+            bound_ms = _k1_bound_ms(sets[0])
+            per_pass += layers * dev_ms
+            log(f"  {dt:8s} ({AAD_B},{hw},{hw},{c}): device "
+                f"{dev_ms * 1e3:.1f} us ({_fmt_times(dev)}), "
+                f"{bound_ms / dev_ms:.0%} of the {bound_ms * 1e3:.1f} us "
+                f"bound (bytes)")
+            if small:
+                with _k1_split_route():
+                    dev = _device_times(kern, 20, device, kernels_per_call=3)
+                log(f"  {'':8s} the split route: device "
+                    f"{sum(dev.values()):.1f} us ({_fmt_times(dev)})")
+            del sets, kern
+        torch.cuda.empty_cache()
+        log(f"K1 device time per 8-frame generator pass ({dt}): "
+            f"{per_pass:.3f} ms ({card})")
+        if dt == "bfloat16":
+            stats["ms"] = per_pass
+
+    gen = init_weights(AEINet("unet", num_blocks=2, policy=DEFAULT_POLICY,
+                              fused_aad=True),
+                       torch.Generator().manual_seed(0)).to(device)
+    g = torch.Generator(device=device).manual_seed(5)
+    xt = torch.rand(8, 256, 256, 3, generator=g, device=device) * 2 - 1
+    zid = torch.randn(8, 512, generator=g, device=device)
+    with torch.inference_mode():
+        gen(xt, zid)
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            gen(xt, zid)
+            torch.cuda.synchronize(device)
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    names = [_kernel_name(e.name) for e in kernels]
+    # a K1 call's first kernel: pass 1 of the split route, or the
+    # one-launch route's only one
+    firsts = [i for i, n in enumerate(names)
+              if n.startswith("aad_small_kernel")
+              or n.startswith("aad_stats_kernel") and n.endswith("false>")]
+    before = [names[i - 1] if i else "" for i in firsts]
+    copies = [n for n in before if "copy" in n.lower()]
+    log(f"K1 in a full-width generator pass (B=8, bf16): {len(firsts)} "
+        f"calls, {len(names)} kernels; {len(copies)} copy kernels just "
+        f"before a K1 call, {sum('copy' in n.lower() for n in names)} in "
+        f"the pass; kernels just before K1: "
+        f"{sorted(set(before))}")
+    if len(firsts) != 21 or copies:
+        raise AssertionError("the generator must run K1 21 times with no "
+                             "copy of h before it")
 
 
 def phase_parity(device):
@@ -976,23 +1140,33 @@ def _kernel_name(key):
     return key.split("(")[0][:100]
 
 
-def _device_times(fn, iters, device):
+def _device_times(fn, iters, device, kernels_per_call=None):
     """Each kernel's device us per call of fn, from torch.profiler over
-    `iters` calls after a warm one: {kernel name: us}."""
+    `iters` calls after a warm one: {kernel name: us}. With
+    kernels_per_call, a session that recorded another number of kernels
+    (the profiler can drop events) is run again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize(device)
-    times = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e):
-            name = _kernel_name(e.key)
-            times[name] = times.get(name, 0.0) + _dev_us(e) / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize(device)
+        times, count = {}, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e):
+                name = _kernel_name(e.key)
+                times[name] = times.get(name, 0.0) + _dev_us(e) / iters
+                count += e.count
+        if kernels_per_call is None or count == kernels_per_call * iters:
+            break
+    else:
+        raise AssertionError(f"torch.profiler recorded {count} kernels in "
+                             f"{iters} calls, {kernels_per_call} expected "
+                             f"a call")
     if not times:
         raise AssertionError("torch.profiler recorded no device time")
     return times
@@ -1895,6 +2069,7 @@ def main(argv):
                                       profile="--profile" in argv)
     phase_grads(device, card)
     phase_k3_device(device, card, stats)
+    phase_k1_device(device, card, stats["aad_modulate"])
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1904,8 +2079,8 @@ def main(argv):
                         **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by",
                                               "library_ms", "library_call")},
-                        # K3: ms/library_ms are device times, these the
-                        # CUDA-event times of back-to-back calls
+                        # K1, K3: ms/library_ms are device times, these
+                        # the CUDA-event times of back-to-back calls
                         **{k: st[k] for k in ("call_ms", "library_call_ms")
                            if k in st}})
     log(json.dumps({"kernels": kernels}))

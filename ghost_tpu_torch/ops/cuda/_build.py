@@ -8,7 +8,7 @@ source, the shared headers (`csrc/*.cuh`) and the flags, so an edit
 rebuilds. `build(names)` starts one nvcc per source at once and waits
 for all of them. The compiler's `-Xptxas -v` report (registers, shared
 memory, spills per kernel) is printed once, to stderr, when a library is
-built.
+built. `launch` calls a library entry point on the current stream.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "ghost_tpu_torch"
@@ -85,6 +87,20 @@ def build(names=SOURCES) -> None:
               f"{err.strip()}", file=sys.stderr, flush=True)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def launch(index: int, name: str, fn, *args) -> None:
+    """fn(*args, stream) on device `index` and its current stream, for a
+    library entry point that returns a cudaError_t; the device context is
+    entered only when `index` is not current. Raises on a launch error."""
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(index, name, fn, *args)
+    # the stream's raw handle, as Triton's launcher reads it: no Stream
+    # object is built on every call
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: cudaError {rc}")
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from ghost_tpu_torch.ops.cuda._build import load_library
+from ghost_tpu_torch.ops.cuda._build import launch, load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # widest row: 512 threads of 32 columns each (`csrc/layer_norm.cu`)
@@ -135,20 +135,6 @@ def _launchers():
     return _Launchers()
 
 
-def _launch(index, name, fn, *args):
-    """fn(*args, stream) on device `index` and its current stream; the
-    device context is entered only when `index` is not current. Raises on
-    a launch error."""
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return _launch(index, name, fn, *args)
-    # the stream's raw handle, as Triton's launcher reads it: no Stream
-    # object is built on every call
-    rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if rc != 0:
-        raise RuntimeError(f"{name} failed: cudaError {rc}")
-
-
 def _no_kernel(x):
     if x.device.type != "cpu":
         raise ValueError(f"fused_layer_norm has no kernel for {x.device}")
@@ -168,9 +154,9 @@ def fused_layer_norm_fwd(x, gamma, beta, eps: float = 1e-5):
     y = torch.empty_like(x)
     mean = x.new_empty(rows, dtype=torch.float32)
     rstd = x.new_empty(rows, dtype=torch.float32)
-    _launch(x.get_device(), "layer_norm_fwd_launch", _launchers().fwd, code,
-            gcode, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows, h, eps)
+    launch(x.get_device(), "layer_norm_fwd_launch", _launchers().fwd, code,
+           gcode, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+           y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows, h, eps)
     fused_layer_norm_fwd.launches += 1
     return y, mean, rstd
 
@@ -203,10 +189,10 @@ def fused_layer_norm_bwd(x, gamma, mean, rstd, dy):
     part = x.new_empty((2, n_blocks, h), dtype=torch.float32)
     dgamma = gamma.new_empty(h)
     dbeta = gamma.new_empty(h)
-    _launch(index, "layer_norm_bwd_launch", launchers.bwd, code, gcode,
-            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), rows, h, n_blocks)
+    launch(index, "layer_norm_bwd_launch", launchers.bwd, code, gcode,
+           x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+           rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+           dgamma.data_ptr(), dbeta.data_ptr(), rows, h, n_blocks)
     fused_layer_norm_bwd.launches += 1
     if dx.dtype != out_dtype:
         dx = dx.to(out_dtype)

@@ -43,7 +43,7 @@ def _inputs(rng, b, h, w, c):
 # divide; (3,2,2,40): blk1-like 2x2 maps with C not a multiple of 32
 @pytest.mark.parametrize("shape", [(2, 8, 16, 8), (1, 48, 32, 8),
                                    (3, 2, 2, 40)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_plain_matches_jax(rng, shape, dtype):
     import jax.numpy as jnp
 
@@ -51,7 +51,7 @@ def test_plain_matches_jax(rng, shape, dtype):
     from ghost_tpu.ops.pallas.aad import aad_modulate_reference
 
     h, ga, bb, idgb, mk, mb = _inputs(rng, *shape)
-    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jd = getattr(jnp, dtype)
     td = getattr(torch, dtype)
     j_in = [jnp.asarray(a).astype(jd) for a in (h, ga, bb, idgb)]
     ref_kernel = j_aad_modulate(*j_in, jnp.asarray(mk), jnp.asarray(mb),
@@ -61,7 +61,7 @@ def test_plain_matches_jax(rng, shape, dtype):
     before = aad_modulate.launches
     out = aad_modulate(*t_in, torch.from_numpy(mk), torch.from_numpy(mb))
     assert out.dtype == td and tuple(out.shape) == shape
-    tol = 0.1 if dtype == "bfloat16" else 1e-5
+    tol = 1e-5 if dtype == "float32" else 0.1
     for ref in (ref_kernel, ref_plain):
         np.testing.assert_allclose(out.float().numpy(),
                                    np.asarray(ref, np.float32),
@@ -113,7 +113,16 @@ def test_kernel_rejects_what_it_does_not_take():
     idgb = torch.empty((2, 16), device="meta")
     mk = torch.empty((1, 8, 1, 1), device="meta")
     mb = torch.empty((1,), device="meta")
-    assert _check(h, ga, bb, idgb, mk, mb) == (16, 16)
+    assert _check(h, ga, bb, idgb, mk, mb) == (0, 16, 16)
+    # float16 is taken; a set of mixed 16-bit dtypes is refused
+    f16 = [t.to(torch.float16) for t in (h, packed, idgb)]
+    assert _check(f16[0], f16[1][..., :8], f16[1][..., 8:], f16[2], mk,
+                  mb) == (2, 16, 16)
+    with pytest.raises(TypeError, match="must be h's"):
+        _check(f16[0], f16[1][..., :8], f16[1][..., 8:],
+               idgb.to(torch.bfloat16), mk, mb)
+    with pytest.raises(TypeError, match="float16"):
+        _check(h.to(torch.float64), ga, bb, idgb, mk, mb)
     with pytest.raises(ValueError, match="contiguous"):
         _check(h.permute(0, 2, 1, 3), ga, bb, idgb, mk, mb)
     with pytest.raises(ValueError, match="unit channel stride"):
@@ -122,37 +131,108 @@ def test_kernel_rejects_what_it_does_not_take():
         _check(h, ga.to(torch.bfloat16), bb, idgb, mk, mb)
     with pytest.raises(ValueError, match="mask_kernel"):
         _check(h, ga, bb, idgb, mk[:, :4], mb)
+    with pytest.raises(ValueError, match="mask_bias"):
+        _check(h, ga, bb, idgb, mk, mb.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="id_gb"):
+        _check(h, ga, bb, idgb[:, :8], mk, mb)
+    with pytest.raises(ValueError, match="device"):
+        _check(h, ga, bb, idgb, torch.empty(8), mb)
+
+
+def test_backward_raises_and_no_grad_is_plain(rng):
+    """With an input that requires grad, the call goes through the
+    autograd Function and its backward raises; with none (or under
+    no_grad) it returns the plain version's values, with no graph."""
+    args = [torch.from_numpy(a) for a in _inputs(rng, 2, 4, 8, 8)]
+    want = aad_modulate_plain(*args)
+    out = aad_modulate(*args)
+    assert out.grad_fn is None and torch.equal(out, want)
+    args[1].requires_grad_()
+    with torch.no_grad():
+        out = aad_modulate(*args)
+    assert out.grad_fn is None and torch.equal(out, want)
+    out = aad_modulate(*args)
+    assert out.grad_fn is not None and torch.equal(out.detach(), want)
+    with pytest.raises(RuntimeError, match="fused_aad=False"):
+        out.sum().backward()
+
+
+# (B, H, W, C, pad): pad > 0 takes gamma/beta from a (B,H,W,2C+pad)
+# tensor at channel offset pad, so neither half is 16-byte aligned and
+# the pixel stride is odd: the element route. (1,48,32,8): rows no block
+# divides; (2,8,8,20): C not a multiple of a 16-bit vector (in f32, 5
+# vectors a row); (2,64,64,64): generator-like C; (1,16,16,1024) wide
+# rows. Maps of at most aad.SMALL_ROWS pixels take the one-launch route,
+# and the card test runs each of them through the split route too.
+CARD_SHAPES = [(2, 8, 16, 8, 0), (1, 48, 32, 8, 0), (3, 2, 2, 40, 0),
+               (2, 8, 8, 20, 0), (2, 4, 4, 64, 1), (2, 64, 64, 64, 0),
+               (2, 16, 16, 64, 1), (1, 16, 16, 1024, 0),
+               (1, 16, 16, 1024, 3)]
+
+
+def _card_args(rng, dtype, b, hh, ww, c, pad):
+    h, ga, bb, idgb, mk, mb = _inputs(rng, b, hh, ww, c)
+    packed = np.concatenate([np.zeros((b, hh, ww, pad), np.float32), ga, bb],
+                            axis=-1)
+    h_d, p_d, id_d, mk_d, mb_d = (torch.from_numpy(a).cuda()
+                                  for a in (h, packed, idgb, mk, mb))
+    p_d = p_d.to(dtype)
+    return (h_d.to(dtype), p_d[..., pad:pad + c], p_d[..., pad + c:],
+            id_d.to(dtype), mk_d, mb_d)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(dtype):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_kernel_matches_plain_on_card(dtype, monkeypatch):
+    """Every route (one-launch, split: register and wide, each with
+    vector and element accesses; the one-launch route's maps also through
+    the split route) against the plain version: bf16 and float16 within
+    0.1 + 2^-6 |ref| (the JAX kernel test's bf16 bound plus two bf16
+    ulps), f32 within 1e-4 + 1e-5 |ref|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from ghost_tpu_torch.core.precision import disable_tf32
+    from ghost_tpu_torch.ops.cuda import aad
 
     disable_tf32()
     rng = np.random.default_rng(0)
     td = getattr(torch, dtype)
-    for shape in [(2, 8, 16, 8), (1, 48, 32, 8), (3, 2, 2, 40),
-                  (2, 64, 64, 64), (1, 16, 16, 1024)]:
-        h, ga, bb, idgb, mk, mb = _inputs(rng, *shape)
-        c = shape[-1]
-        packed = np.concatenate([ga, bb], axis=-1)
-        dev = [torch.from_numpy(a).cuda() for a in (h, packed, idgb, mk, mb)]
-        h_d, p_d, id_d, mk_d, mb_d = dev
-        p_d = p_d.to(td)
-        args = (h_d.to(td), p_d[..., :c], p_d[..., c:], id_d.to(td), mk_d,
-                mb_d)
-        before = aad_modulate.launches
-        out = aad_modulate(*args)
-        torch.cuda.synchronize()
-        assert aad_modulate.launches == before + 1
+    for shape in CARD_SHAPES:
+        args = _card_args(rng, td, *shape)
         ref = aad_modulate_plain(*args)
-        err = (out.float() - ref.float()).abs()
-        bound = (0.1 if dtype == "bfloat16" else 1e-4) \
-            + ref.float().abs() * (2 ** -6 if dtype == "bfloat16" else 1e-5)
-        assert bool((err <= bound).all()), (shape, float(err.max()))
+        bound = (1e-4 + 1e-5 * ref.float().abs() if dtype == "float32"
+                 else 0.1 + 2 ** -6 * ref.float().abs())
+        small = shape[1] * shape[2] <= aad.SMALL_ROWS
+        for small_rows in ((aad.SMALL_ROWS, 0) if small else
+                           (aad.SMALL_ROWS,)):
+            monkeypatch.setattr(aad, "SMALL_ROWS", small_rows)
+            before = aad_modulate.launches
+            out = aad_modulate(*args)
+            torch.cuda.synchronize()
+            assert aad_modulate.launches == before + 1
+            assert out.dtype == td and out.shape == args[0].shape
+            err = (out.float() - ref.float()).abs()
+            assert bool((err <= bound).all()), (shape, small_rows,
+                                                float(err.max()))
+        monkeypatch.undo()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_is_deterministic_on_card(dtype):
+    """The statistics' partial sums are added in a fixed order (no
+    atomics): two calls on the same inputs give the same bits, on a shape
+    whose rows are split over many blocks, on the wide route and on the
+    one-launch route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(1)
+    for shape in [(4, 128, 128, 64, 0), (2, 32, 32, 1024, 0),
+                  (8, 8, 8, 1024, 0)]:
+        args = _card_args(rng, getattr(torch, dtype), *shape)
+        first = aad_modulate(*args)
+        second = aad_modulate(*args)
+        assert torch.equal(first, second), shape
 
 
 def _tiny_aeinet(fused_aad):
