@@ -84,10 +84,25 @@ exits non-zero without its result lines:
               three dtypes (torch.profiler), and the kernels that run just
               before each K1 call in a full-width bf16 generator pass (no
               copy of h may run there)
+ 17. cli      the user's swap CLI (`ghost_tpu_torch/cli/inference.py`):
+              cv2 must import and libghost_rt must build
+              (`native_available()`); seeded full-width `.pth` files with
+              the reference's names (G unet 2 blocks, iresnet100), a 1080p
+              png pair and a 20-frame 1080p mp4; `main(argv)` for the
+              image, the streaming and the frames video paths and
+              streaming with the SRVGG student seat (`--use_sr 1`), the
+              random detector and landmark heads pinned to face
+              templates: each output decoded back (20 frames at
+              1920x1080), K1 launched (and S2 with the seat), the
+              streaming runs on the native ring, wall and frames/s end to
+              end; then `run(args, pipe)` on a loaded pipeline: its png
+              equals `swap_image_fused` bit for bit and changes the face
+              box
 
-Each path (5, 8, 9, 13, 14) runs with every launch count set to 0 just
-before it and read just after; the counts of 5, 8, 9 and 13 go into the
-kernels line.
+Each path (5, 8, 9, 13, 14 and each run of 17) runs with every launch
+count set to 0 just before it and read just after; the counts of 5, 8, 9
+and 13 go into the kernels line as `launches`, those of 17 as
+`cli_launches`.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -190,6 +205,16 @@ STUDENT = Path(__file__).resolve().parent / "assets" / \
     "srvgg_student_x2_r05.msgpack"
 # the video phase: frames of (H, W), chunk, identities
 VIDEO = dict(frames=20, hw=(1080, 1920), chunk=8, identities=2)
+
+# the CLI phase: a 1080p source/target png pair and a clip of 20 1080p
+# frames; the runs of `main` (extra flags after the shared ones)
+CLI = dict(frames=20, hw=(1080, 1920), fps=25.0, batch=8, width=1.0,
+           arcface_depth="iresnet100", arcface_layers=(3, 13, 30, 3))
+CLI_RUNS = (("image", ("--image_to_image", "1")),
+            ("stream", ("--streaming", "1")),
+            ("frames", ("--streaming", "0")),
+            ("stream_sr", ("--streaming", "1", "--use_sr", "1",
+                           "--sr_model", "srvgg_student")))
 
 
 # each kernel: its source and the TPU kernel it replaces
@@ -2037,6 +2062,268 @@ def phase_grads(device, card):
         raise AssertionError("SR student gradients on the card")
 
 
+# ---------------------------------------------------------------------------
+# The user's swap CLI
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _templated_cli():
+    """`inference.load_pipeline` pins the random detector and landmark
+    heads to face templates (as `build_random_pipeline(inject_templates=
+    True)` does): a random SCRFD scores no anchor above det_thresh, so no
+    lane would be present and no generator would run."""
+    from ghost_tpu_torch.cli import inference
+    from ghost_tpu_torch.utils.face_template import (
+        inject_detection_template, inject_landmark_template)
+
+    load = inference.load_pipeline
+
+    def load_templated(*args, **kwargs):
+        pipe = load(*args, **kwargs)
+        inject_detection_template(pipe.det_mod)
+        inject_landmark_template(pipe.lmk_mod)
+        return pipe
+
+    inference.load_pipeline = load_templated
+    try:
+        yield load_templated
+    finally:
+        inference.load_pipeline = load
+
+
+def _cli_inputs():
+    """`tests/torch_cli_inputs.py` (numpy only: the reference's state
+    dicts and the media files), loaded from its path: on the card's
+    machine `import tests` finds another package than the repository's
+    directory."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_cli_inputs.py"
+    spec = importlib.util.spec_from_file_location("torch_cli_inputs", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _cli_call(fn):
+    """fn() with its standard output captured, synced; returns (wall s,
+    lines, fn's result)."""
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, buf.getvalue().splitlines(), result
+
+
+def _face_box(pipe, image):
+    """The best-scored detection box of an RGB image, (x0, y0, x1, y1)
+    in pixels, as crop_faces detects."""
+    import torch
+
+    from ghost_tpu_torch.models.scrfd import (decode_detections,
+                                              preprocess_frames)
+
+    cfg = pipe.cfg
+    with torch.inference_mode():
+        canvas, scale = preprocess_frames(pipe._tensor(image[None]),
+                                          cfg.det_size)
+        scores, boxes, _ = decode_detections(
+            pipe.det_mod(canvas), input_size=cfg.det_size,
+            score_thresh=cfg.det_thresh, max_faces=cfg.max_faces)
+    if not float(scores[0, 0]) > 0:
+        raise AssertionError("cli: no face detected in the target")
+    h, w = image.shape[:2]
+    x0, y0, x1, y1 = (boxes[0, 0] / scale).cpu().tolist()
+    return (max(int(x0), 0), max(int(y0), 0), min(int(x1) + 1, w),
+            min(int(y1) + 1, h))
+
+
+def phase_cli(card):
+    """The swap CLI (`python -m ghost_tpu_torch.cli.inference`) through
+    `main(argv)` on seeded full-width `.pth` files with the reference's
+    names (G unet 2 blocks, iresnet100), a 1080p png pair and a 20-frame
+    1080p mp4, in a temporary directory: the image path, the streaming
+    and the frames video paths, and streaming with the SRVGG student
+    seat; each output decoded back, K1 (and S2 with the seat) launched,
+    wall and frames/s end to end (weights, decode, swap, encode). The
+    random detector and landmark heads are pinned to face templates
+    (`_templated_cli`). Then the split-off `run` on such a loaded
+    pipeline: the written png must equal `swap_image_fused` bit for bit
+    and differ from the target inside the detected face box. Returns the
+    launches of each run."""
+    import logging
+    import logging.handlers
+
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("cli: cv2 does not import on this machine; the "
+                           "CLI's image and video IO need it") from e
+    import shutil
+
+    log(f"cli: cv2 {cv2.__version__} imports; ffmpeg "
+        f"{shutil.which('ffmpeg') or 'absent (the audio remux returns False)'}")
+    from ghost_tpu_torch.data import frames
+
+    log(f"cli: native_available() {frames.native_available()} "
+        f"({frames.library_path()}; {frames.native_error()})")
+    if not frames.native_available():
+        raise AssertionError("cli: libghost_rt did not build: "
+                             f"{frames.native_error()}")
+    # stream_video_chunks logs the ring it takes
+    ring_log = logging.handlers.BufferingHandler(100)
+    frames_logger = logging.getLogger(frames.__name__)
+    frames_logger.addHandler(ring_log)
+    frames_logger.setLevel(logging.INFO)
+    try:
+        return _cli_runs(card, ring_log)
+    finally:
+        frames_logger.removeHandler(ring_log)
+
+
+def _cli_runs(card, ring_log):
+    import tempfile
+
+    import numpy as np
+
+    from ghost_tpu_torch.cli import inference
+    from ghost_tpu_torch.pipeline.image import read_image_rgb
+    from ghost_tpu_torch.pipeline.video import read_video
+
+    inputs = _cli_inputs()
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        f = inputs.write_media(d, rng, CLI["hw"], CLI["frames"], CLI["fps"])
+        g_path, arc_path = f"{d}/G_unet_2blocks.pth", f"{d}/backbone.pth"
+        inputs.save_pth(g_path, inputs.aei_state_dict(rng, "unet", 2,
+                                                      CLI["width"]))
+        inputs.save_pth(arc_path,
+                        inputs.arcface_state_dict(rng, CLI["arcface_layers"]))
+        mib = sum(Path(p).stat().st_size for p in (g_path, arc_path)) / 2 ** 20
+        log(f"cli: wrote the .pth files ({mib:.0f} MiB), the {CLI['hw']} "
+            f"pngs and the {CLI['frames']}-frame mp4 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        base = ["--G_path", g_path, "--width", str(CLI["width"]),
+                "--arcface_path", arc_path,
+                "--arcface_depth", CLI["arcface_depth"],
+                "--allow_random_weights", "1",
+                "--batch_size", str(CLI["batch"]), "--source_paths", f["src"]]
+        target = read_image_rgb(f["tgt"])
+        for name, extra in CLI_RUNS:
+            out = f"{d}/{name}." + ("png" if name == "image" else "mp4")
+            io_args = (["--target_image", f["tgt"], "--out_image_name", out]
+                       if name == "image" else
+                       ["--target_video", f["mp4"], "--out_video_name", out])
+            argv = base + list(extra) + io_args
+            zero_counts()
+            with _templated_cli():
+                wall, lines, _ = _cli_call(lambda: inference.main(argv))
+            counts = read_counts()
+            launches[name] = counts
+            for line in lines:
+                log(f"  cli {name} | {line}")
+            if name == "image":
+                got = read_image_rgb(out)
+                n = 1
+                if got.shape != target.shape:
+                    raise AssertionError(f"cli image: {got.shape}")
+            else:
+                got, fps = read_video(out)
+                n = got.shape[0]
+                if got.shape != (CLI["frames"], *CLI["hw"], 3) \
+                        or fps != CLI["fps"]:
+                    raise AssertionError(f"cli {name}: decoded {got.shape} "
+                                         f"at {fps} fps")
+            total = [ln for ln in lines if ln.startswith("Total time")]
+            log(f"cli {name}: main() {wall:.2f} s wall, {n / wall:.2f} "
+                f"frames/s end to end (weights, decode, swap, encode; "
+                f"{total[0] if total else 'no Total time line'}); K1 "
+                f"launches {counts['aad_modulate']}, S2 "
+                f"{counts['conv3x3']}; {n} frames of "
+                f"{got.shape[-3]}x{got.shape[-2]} decoded back ({card})")
+            if counts["aad_modulate"] <= 0:
+                raise AssertionError(f"cli {name}: K1 never launched")
+            if name == "stream_sr" and counts["conv3x3"] <= 0:
+                raise AssertionError("cli stream_sr: S2 never launched")
+        rings = [r.getMessage() for r in ring_log.buffer]
+        log(f"cli: the streaming runs' rings: {rings}")
+        if len(rings) != 2 or not all("native ring" in r for r in rings):
+            raise AssertionError("cli: a streaming run did not take the "
+                                 "native ring")
+
+        # a real blend through the split-off run, bit for bit
+        out = f"{d}/real.png"
+        args = inference.build_parser().parse_args(
+            base + ["--image_to_image", "1", "--target_image", f["tgt"],
+                    "--out_image_name", out])
+        with _templated_cli() as load:
+            load_s, _, pipe = _cli_call(lambda: load(args))
+        zero_counts()
+        wall, _, _ = _cli_call(lambda: inference.run(args, pipe))
+        counts = read_counts()
+        written = read_image_rgb(out)
+        sources = inference.crop_or_center(pipe, f["src"])[None]
+        ref = pipe.swap_image_fused(target, sources)
+        x0, y0, x1, y1 = _face_box(pipe, target)
+        inside = float((written[y0:y1, x0:x1] != target[y0:y1, x0:x1]).mean())
+        log(f"cli run(args, pipe) with face templates: {wall:.2f} s, K1 "
+            f"launches {counts['aad_modulate']}; equal to swap_image_fused: "
+            f"{np.array_equal(written, ref)}; {inside:.2%} of the values in "
+            f"the face box ({x0},{y0})-({x1},{y1}) changed; "
+            f"{float((written != target).mean()):.2%} of the image ({card})")
+        if not np.array_equal(written, ref):
+            raise AssertionError("cli: the written image differs from "
+                                 "swap_image_fused")
+        if not inside > 0 or counts["aad_modulate"] <= 0:
+            raise AssertionError("cli: no blend inside the face box")
+        _cli_breakdown(card, f, pipe, sources, load_s, d)
+    return launches
+
+
+def _cli_breakdown(card, f, pipe, sources, load_s, d):
+    """Where a streaming run's wall goes, each piece alone on the same
+    20 frames: the pipeline load, decode through the native ring and
+    through `read_video`, `swap_video_stream(smooth=True)` on chunks in
+    memory (warm), and the encode."""
+    from ghost_tpu_torch.data.frames import stream_video_chunks
+    from ghost_tpu_torch.pipeline.video import VideoChunkWriter, read_video
+
+    chunk = CLI["batch"]
+    ring_s, _, chunks = _cli_call(
+        lambda: list(stream_video_chunks(f["mp4"], chunk)))
+    read_s, _, _ = _cli_call(lambda: read_video(f["mp4"]))
+
+    def swap():
+        return list(pipe.swap_video_stream(iter(chunks), sources,
+                                           smooth=True))
+    swap()  # warm
+    swap_s, _, outs = _cli_call(swap)
+
+    def encode():
+        writer = VideoChunkWriter(f"{d}/encode.mp4", CLI["fps"])
+        for out in outs:
+            writer.write(out)
+        writer.close()
+    encode_s, _, _ = _cli_call(encode)
+    n = sum(c.shape[0] for c in chunks)
+    log(f"cli breakdown ({n} frames, {CLI['hw']}, chunk {chunk}): "
+        f"load_pipeline {load_s:.2f} s; decode through the ring "
+        f"{ring_s:.3f} s ({n / ring_s:.1f} frames/s), read_video "
+        f"{read_s:.3f} s; swap_video_stream(smooth=True) warm {swap_s:.3f} s "
+        f"({n / swap_s:.2f} frames/s); encode (mp4v) {encode_s:.3f} s "
+        f"({n / encode_s:.1f} frames/s) ({card})")
+
+
 def main(argv):
     import torch
 
@@ -2070,6 +2357,7 @@ def main(argv):
     phase_grads(device, card)
     phase_k3_device(device, card, stats)
     phase_k1_device(device, card, stats["aad_modulate"])
+    cli = phase_cli(card)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2082,7 +2370,11 @@ def main(argv):
                         # K1, K3: ms/library_ms are device times, these
                         # the CUDA-event times of back-to-back calls
                         **{k: st[k] for k in ("call_ms", "library_call_ms")
-                           if k in st}})
+                           if k in st},
+                        # the launches of each CLI run (phase 17)
+                        **({"cli_launches": {run: c[name]
+                                             for run, c in cli.items()}}
+                           if any(c[name] for c in cli.values()) else {})})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,250 @@
+"""PyTorch checkpoints of the reference -> flax-style variables trees,
+the port's copy of the parts of `ghost_tpu/convert/torch_loader.py`
+that the swap CLI reads.
+
+The reference distributes weights as torch state_dicts
+(G_unet_{N}blocks.pth, backbone.pth; reference download_models.sh:1-24,
+inference.py:28,34). These converters map the reference's parameter
+names onto the JAX package's flax module tree and transpose layouts:
+
+  conv        torch (cout, cin, kh, kw)  -> (kh, kw, cin, cout)
+  conv-transpose torch (cin, cout, kh, kw) -> (kh, kw, cin, cout)
+  linear      torch (out, in)            -> (in, out)
+  batchnorm   weight/bias/running_mean/running_var -> scale/bias/mean/var
+
+Fused layers (see models/aei.py): each AADLayer's two 1x1 gamma/beta
+convs pack into one `attr_gb` kernel and the two id FCs into one
+`id_gb` matrix, concatenated along the output-channel axis in
+(gamma, beta) order.
+
+The port loads the tree with its strict bridge,
+`convert/from_jax.py:load_flax_variables`, which the parity tests hold
+against the JAX models; the converters themselves are pure numpy and do
+not depend on the model's width. The SRVGG `body.N` and SPADE routes of
+the JAX module move with their callers (the enhancer, `cli/convert.py`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """Unpickle a torch .pth state_dict into numpy arrays."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        # mmdet-style checkpoints carry non-tensor metadata
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    # basicsr-family checkpoints (RealESRGAN/GFPGAN) nest under
+    # params_ema/params; mmdet under state_dict; misc under model
+    for wrapper in ("state_dict", "model", "params_ema", "params"):
+        if isinstance(sd, dict) and wrapper in sd \
+                and isinstance(sd[wrapper], dict):
+            sd = sd[wrapper]
+            break
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()
+            if hasattr(v, "detach")}
+
+
+def _conv(sd, name):
+    return np.transpose(sd[f"{name}.weight"], (2, 3, 1, 0))
+
+
+def _deconv(sd, name):
+    return np.transpose(sd[f"{name}.weight"], (2, 3, 0, 1))
+
+
+def _bn(sd, name):
+    return {
+        "scale": sd[f"{name}.weight"],
+        "bias": sd[f"{name}.bias"],
+    }, {
+        "mean": sd[f"{name}.running_mean"],
+        "var": sd[f"{name}.running_var"],
+    }
+
+
+def _linear_kernel(sd, name):
+    return np.transpose(sd[f"{name}.weight"], (1, 0))
+
+
+def _aad_layer(sd, prefix: str):
+    """Pack one reference AADLayer (conv1/conv2 1x1 convs = attr
+    gamma/beta, fc1/fc2 = id gamma/beta, conv_h = mask) into the fused
+    AADLayer params."""
+    g_attr = np.transpose(sd[f"{prefix}.conv1.weight"], (2, 3, 1, 0))
+    b_attr = np.transpose(sd[f"{prefix}.conv2.weight"], (2, 3, 1, 0))
+    attr_kernel = np.concatenate([g_attr, b_attr], axis=-1)
+    attr_bias = np.concatenate(
+        [sd[f"{prefix}.conv1.bias"], sd[f"{prefix}.conv2.bias"]], axis=0
+    )
+    id_kernel = np.concatenate(
+        [_linear_kernel(sd, f"{prefix}.fc1"), _linear_kernel(sd, f"{prefix}.fc2")],
+        axis=-1,
+    )
+    id_bias = np.concatenate(
+        [sd[f"{prefix}.fc1.bias"], sd[f"{prefix}.fc2.bias"]], axis=0
+    )
+    return {
+        "attr_gb": {"Conv_0": {"kernel": attr_kernel, "bias": attr_bias}},
+        "id_gb": {"Dense_0": {"kernel": id_kernel, "bias": id_bias}},
+        "mask": {
+            "Conv_0": {
+                "kernel": np.transpose(sd[f"{prefix}.conv_h.weight"], (2, 3, 1, 0)),
+                "bias": sd[f"{prefix}.conv_h.bias"],
+            }
+        },
+    }
+
+
+def _aad_resblock(sd, prefix: str, num_blocks: int, cin: int, cout: int):
+    """Reference AAD_ResBlk: add_blocks is a flat Sequential of
+    [AADLayer, ReLU, Conv] repeated (reference network/AADLayer.py:59-66),
+    so AADLayer k lives at index 3k and its conv at 3k+2."""
+    out = {}
+    for k in range(num_blocks):
+        out[f"aad{k}"] = _aad_layer(sd, f"{prefix}.add_blocks.{3 * k}")
+        out[f"conv{k}"] = {
+            "Conv_0": {"kernel": _conv(sd, f"{prefix}.add_blocks.{3 * k + 2}")}
+        }
+    if cin != cout:
+        out["aad_short"] = _aad_layer(sd, f"{prefix}.last_add_block.0")
+        out["conv_short"] = {
+            "Conv_0": {"kernel": _conv(sd, f"{prefix}.last_add_block.2")}
+        }
+    return out
+
+
+def _convert_resnet_encoder(sd, prefix: str = "encoder."):
+    """MLAttrEncoderResnet (reference network/resnet.py:81-149): 7x7
+    stem pair + six 2-block Bottleneck stages, each stage stride 2 with
+    a 1x1 downsample on its first block."""
+    p: Dict = {}
+    s: Dict = {}
+
+    def put_bn(dst_p, dst_s, torch_name, flax_name):
+        bp, bs = _bn(sd, torch_name)
+        dst_p[flax_name] = {"BatchNorm_0": bp}
+        dst_s[flax_name] = {"BatchNorm_0": bs}
+
+    p["conv0"] = {"Conv_0": {"kernel": _conv(sd, f"{prefix}conv0")}}
+    put_bn(p, s, f"{prefix}bn0", "bn0")
+    p["conv1"] = {"Conv_0": {"kernel": _conv(sd, f"{prefix}conv1")}}
+    put_bn(p, s, f"{prefix}bn1", "bn1")
+
+    for stage in range(1, 7):
+        for b in range(2):
+            t = f"{prefix}layer{stage}.{b}"
+            f = f"layer{stage}_block{b}"
+            bp: Dict = {}
+            bs: Dict = {}
+            for c in ("conv1", "conv2", "conv3"):
+                bp[c] = {"Conv_0": {"kernel": _conv(sd, f"{t}.{c}")}}
+            for n in ("bn1", "bn2", "bn3"):
+                put_bn(bp, bs, f"{t}.{n}", n)
+            if b == 0:
+                bp["ds_conv"] = {
+                    "Conv_0": {"kernel": _conv(sd, f"{t}.downsample.0")}
+                }
+                put_bn(bp, bs, f"{t}.downsample.1", "ds_bn")
+            p[f] = bp
+            s[f] = bs
+    return p, s
+
+
+_AAD_CIN = (1024, 1024, 1024, 1024, 512, 256, 128, 64)
+_AAD_COUT = (1024, 1024, 1024, 512, 256, 128, 64, 3)
+
+
+def convert_aei_state_dict(
+    sd: Mapping[str, np.ndarray], backbone: str = "unet", num_blocks: int = 2
+):
+    """G_*.pth -> {'params': ..., 'batch_stats': ...} for models.aei.AEINet."""
+    params: Dict = {"encoder": {}, "generator": {}}
+    stats: Dict = {"encoder": {}}  # generator has no batch-norm state
+
+    if backbone in ("unet", "linknet"):
+        for i in range(1, 8):
+            # reference conv4x4 Sequential: 0=conv, 1=norm
+            bn_p, bn_s = _bn(sd, f"encoder.conv{i}.1")
+            params["encoder"][f"down{i}"] = {
+                "conv": {"Conv_0": {"kernel": _conv(sd, f"encoder.conv{i}.0")}},
+                "bn": {"BatchNorm_0": bn_p},
+            }
+            stats["encoder"][f"down{i}"] = {"bn": {"BatchNorm_0": bn_s}}
+        for i in range(1, 7):
+            bn_p, bn_s = _bn(sd, f"encoder.deconv{i}.bn")
+            params["encoder"][f"up{i}"] = {
+                "deconv": {"kernel": _deconv(sd, f"encoder.deconv{i}.deconv")},
+                "bn": {"BatchNorm_0": bn_p},
+            }
+            stats["encoder"][f"up{i}"] = {"bn": {"BatchNorm_0": bn_s}}
+    elif backbone == "resnet":
+        enc_p, enc_s = _convert_resnet_encoder(sd, prefix="encoder.")
+        params["encoder"] = enc_p
+        stats["encoder"] = enc_s
+    else:
+        raise ValueError(f"unknown backbone {backbone!r}")
+
+    params["generator"]["up1"] = {
+        "kernel": _deconv(sd, "generator.up1"),
+        "bias": sd["generator.up1.bias"],
+    }
+    for k in range(8):
+        params["generator"][f"blk{k + 1}"] = _aad_resblock(
+            sd, f"generator.AADBlk{k + 1}", num_blocks, _AAD_CIN[k], _AAD_COUT[k]
+        )
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_arcface_state_dict(sd: Mapping[str, np.ndarray], layers=(3, 13, 30, 3)):
+    """backbone.pth (insightface iresnet) -> models.arcface.IResNet tree."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put_bn(dst_p, dst_s, torch_name, flax_name):
+        p, s = _bn(sd, torch_name)
+        dst_p[flax_name] = {"BatchNorm_0": p}
+        dst_s[flax_name] = {"BatchNorm_0": s}
+
+    params["stem_conv"] = {"Conv_0": {"kernel": _conv(sd, "conv1")}}
+    put_bn(params, stats, "bn1", "stem_bn")
+    params["stem_prelu"] = {"alpha": sd["prelu.weight"]}
+
+    for stage, n in enumerate(layers):
+        for b in range(n):
+            t = f"layer{stage + 1}.{b}"
+            f = f"layer{stage + 1}_block{b}"
+            blk_p: Dict = {}
+            blk_s: Dict = {}
+            put_bn(blk_p, blk_s, f"{t}.bn1", "bn1")
+            blk_p["conv1"] = {"Conv_0": {"kernel": _conv(sd, f"{t}.conv1")}}
+            put_bn(blk_p, blk_s, f"{t}.bn2", "bn2")
+            blk_p["prelu"] = {"alpha": sd[f"{t}.prelu.weight"]}
+            blk_p["conv2"] = {"Conv_0": {"kernel": _conv(sd, f"{t}.conv2")}}
+            put_bn(blk_p, blk_s, f"{t}.bn3", "bn3")
+            if b == 0:
+                blk_p["ds_conv"] = {
+                    "Conv_0": {"kernel": _conv(sd, f"{t}.downsample.0")}
+                }
+                put_bn(blk_p, blk_s, f"{t}.downsample.1", "ds_bn")
+            params[f] = blk_p
+            stats[f] = blk_s
+
+    put_bn(params, stats, "bn2", "head_bn")
+    params["fc"] = {
+        "Dense_0": {"kernel": _linear_kernel(sd, "fc"), "bias": sd["fc.bias"]}
+    }
+    # features BatchNorm1d
+    params["features"] = {"scale": sd["features.weight"], "bias": sd["features.bias"]}
+    stats["features"] = {
+        "mean": sd["features.running_mean"],
+        "var": sd["features.running_var"],
+    }
+    return {"params": params, "batch_stats": stats}

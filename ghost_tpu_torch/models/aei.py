@@ -14,7 +14,9 @@
 
 Inside, tensors are NCHW in channels_last memory, so a pixel's channels
 are contiguous, the layout the AAD kernel reads; `AEINet.forward` takes
-and returns NHWC like the JAX model. The resnet encoder is not ported.
+and returns NHWC like the JAX model. `backbone="resnet"` takes the
+Bottleneck-ResNet encoder of `models/aei_resnet.py` (full width at any
+generator width, as in JAX).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ghost_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from ghost_tpu_torch.models.aei_resnet import MLAttrEncoderResnet
 from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, Dense,
                                        instance_norm, leaky_relu,
                                        resize_like_torch, to_nchw, to_nhwc)
@@ -260,10 +263,12 @@ class AEINet(nn.Module):
                  policy: Policy = DEFAULT_POLICY, width: float = 1.0,
                  fused_aad: bool = False, device=None):
         super().__init__()
-        if backbone not in ("unet", "linknet"):
-            raise ValueError(f"backbone {backbone!r} is not ported "
-                             "(unet and linknet are)")
-        self.encoder = MLAttrEncoder(backbone, policy, width, device)
+        if backbone in ("unet", "linknet"):
+            self.encoder = MLAttrEncoder(backbone, policy, width, device)
+        elif backbone == "resnet":
+            self.encoder = MLAttrEncoderResnet(policy, device)
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
         self.generator = AADGenerator(self.encoder.attr_channels, backbone,
                                       c_id, num_blocks, policy, width,
                                       fused_aad, device)

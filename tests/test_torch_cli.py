@@ -1,0 +1,311 @@
+"""The port's swap CLI (`ghost_tpu_torch/cli/inference.py`) against
+ghost_tpu's: the parser flag for flag, `load_pipeline`'s weights on the
+same files, and `main` runs on a small png and a 5-frame mp4 on the CPU.
+
+Files (module fixture): a narrow `.pth` G (unet, 2 blocks, width 1/16)
+and an iresnet34 `backbone.pth` with the reference's names
+(`tests/torch_cli_inputs.py`), detector and landmark msgpack written by
+the JAX package's `save_msgpack` from seeded variables with its face
+templates injected (so detections, the mask and the blend are real), and
+the bundled SRVGG student. Weights must be equal exactly: the port's
+loaded modules against the JAX CLI's variables passed through the bridge.
+The written image must equal `swap_image_fused` on the same pipeline bit
+for bit. The video runs take `--arcface_depth tiny` (which, as in the
+JAX CLI, ignores `--arcface_path` and needs `--allow_random_weights`):
+iresnet34 embeds 8 crops a frame, ~0.6 s of CPU each frame.
+
+JAX is imported inside the tests that use it, so the card tests run
+where jax is not installed:
+    python -m pytest --noconftest -m gpu tests/test_torch_cli.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ghost_tpu_torch.cli import inference as tcli
+from ghost_tpu_torch.convert.from_jax import load_flax_variables
+from ghost_tpu_torch.nn.layers import cast_to_compute_dtype
+from ghost_tpu_torch.pipeline.image import read_image_rgb
+from ghost_tpu_torch.pipeline.video import read_video
+from torch_cli_inputs import (aei_state_dict, arcface_state_dict, save_pth,
+                              write_media)
+
+HW = (160, 224)
+N_FRAMES = 5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    from ghost_tpu.core.checkpoint import save_msgpack
+    from ghost_tpu.core.precision import FULL_PRECISION as JFULL
+    from ghost_tpu.models import landmark as jlmk
+    from ghost_tpu.models import scrfd as jscrfd
+    from ghost_tpu.utils.face_template import (inject_detection_template,
+                                               inject_landmark_template)
+    from tests.test_torch_pipeline import _variables
+
+    d = tmp_path_factory.mktemp("cli")
+    rng = np.random.default_rng(21)
+    paths = write_media(d, rng, HW, N_FRAMES)
+    paths["G"], paths["arc"] = str(d / "G_unet_2blocks.pth"), \
+        str(d / "backbone.pth")
+    save_pth(paths["G"], aei_state_dict(rng, "unet", 2, 1 / 16))
+    save_pth(paths["arc"], arcface_state_dict(rng, (3, 4, 6, 3)))
+    paths["det"], paths["lmk"] = str(d / "det.msgpack"), str(d / "lmk.msgpack")
+    det = inject_detection_template(
+        _variables(jscrfd.SCRFD(policy=JFULL), rng, (1, 320, 320, 3)))
+    lmk = inject_landmark_template(
+        _variables(jlmk.Landmark106(policy=JFULL), rng, (1, 192, 192, 3)))
+    save_msgpack(paths["det"], det)
+    save_msgpack(paths["lmk"], lmk)
+    paths["dir"] = d
+    return paths
+
+
+def _argv(f, *extra, arcface="iresnet34"):
+    return ["--G_path", f["G"], "--width", "0.0625",
+            "--arcface_path", f["arc"], "--arcface_depth", arcface,
+            "--detector_path", f["det"], "--landmark_path", f["lmk"],
+            "--det_size", "320", "--batch_size", "2", "--bf16", "",
+            "--source_paths", f["src"], *extra]
+
+
+SR = ("--use_sr", "1", "--sr_model", "srvgg_student")
+
+
+@pytest.fixture(scope="module")
+def loaded(files):
+    """The JAX CLI's and the port's pipelines on the same files."""
+    from ghost_tpu.cli import inference as jcli
+
+    argv = _argv(files, *SR)
+    jpipe = jcli.load_pipeline(jcli.build_parser().parse_args(argv))
+    tpipe = tcli.load_pipeline(tcli.build_parser().parse_args(argv), "cpu")
+    return jpipe, tpipe
+
+
+# ------------------------------------------------------------------ parser
+def _actions(parser):
+    return {a.dest: a for a in parser._actions if a.dest != "help"}
+
+
+_SAMPLES = ["0", "1", "", "False", "false", "no", "off", "f", "n", "True",
+            "yes", " On "]
+
+
+def test_parser_matches_jax():
+    """Every option: strings, dest, default, const, choices, nargs, and
+    the same parsed value for each sample string (type behaviour)."""
+    from ghost_tpu.cli import inference as jcli
+
+    ref, got = _actions(jcli.build_parser()), _actions(tcli.build_parser())
+    assert sorted(got) == sorted(ref)
+    for dest, r in ref.items():
+        g = got[dest]
+        for field in ("option_strings", "default", "const", "choices",
+                      "nargs", "required"):
+            assert getattr(g, field) == getattr(r, field), (dest, field)
+        if r.type is None or r.type in (int, float, str, bool):
+            assert g.type is r.type, dest
+        else:  # str2bool: the same answers
+            assert [g.type(s) for s in _SAMPLES] == \
+                [r.type(s) for s in _SAMPLES], dest
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--source_paths", "a.jpg", "b.jpg", "--target_faces_paths", "t.jpg",
+     "--target_video", "in.mp4", "--out_video_name", "out.mp4",
+     "--batch_size", "20", "--similarity_th", "0.2", "--backbone",
+     "linknet", "--num_blocks", "3"],
+    ["--use_sr", "False", "--bf16", "", "--image_to_image", "0",
+     "--streaming", "off", "--smooth", "0", "--backbone"],
+    ["--sr_model", "srvgg_student", "--arcface_depth", "tiny",
+     "--enhance_output", "full", "--bg_model", "srvgg", "--width", "0.5",
+     "--allow_random_weights", "yes", "--det_size", "320"],
+])
+def test_parser_parses_like_jax(argv):
+    from ghost_tpu.cli import inference as jcli
+
+    got = vars(tcli.build_parser().parse_args(argv))
+    assert got == vars(jcli.build_parser().parse_args(argv))
+    if "--use_sr" in argv:
+        # the reference's type=bool wart: any non-empty string is True
+        assert got["use_sr"] is True and got["bf16"] is False
+        assert got["image_to_image"] is True and got["backbone"] == "unet"
+
+
+def test_help_exits_zero(capsys):
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["--help"], device="cpu")
+    assert e.value.code == 0
+    assert "--enhance_output" in capsys.readouterr().out
+
+
+def test_bundled_student_ckpt_is_the_repo_asset():
+    from ghost_tpu.cli import inference as jcli
+
+    path = tcli.bundled_student_ckpt()
+    assert path is not None and path == jcli.bundled_student_ckpt()
+
+
+# ----------------------------------------------------------------- weights
+def _bridged(tmod, variables):
+    return cast_to_compute_dtype(load_flax_variables(tmod, variables).eval())
+
+
+def _assert_same_tensors(got, ref):
+    g, r = got.state_dict(), ref.state_dict()
+    assert sorted(g) == sorted(r)
+    for k in r:
+        assert g[k].dtype == r[k].dtype and torch.equal(g[k], r[k]), k
+
+
+def test_load_pipeline_weights_match_jax(loaded):
+    """Each of the port's loaded modules equals a fresh port module
+    filled by the bridge from the JAX CLI's variables, tensor for tensor,
+    and the two SwapConfigs agree."""
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.aei import AEINet
+    from ghost_tpu_torch.models.arcface import IResNet
+    from ghost_tpu_torch.models.landmark import Landmark106
+    from ghost_tpu_torch.models.scrfd import SCRFD
+    from ghost_tpu_torch.models.sr.srvgg import srvgg_from_variables
+
+    jpipe, tpipe = loaded
+    p = FULL_PRECISION
+    refs = {"det_mod": SCRFD(policy=p), "arc_mod": IResNet((3, 4, 6, 3),
+                                                           policy=p),
+            "gen_mod": AEINet("unet", num_blocks=2, policy=p, width=1 / 16,
+                              fused_aad=True),
+            "lmk_mod": Landmark106(policy=p)}
+    vars_of = {"det_mod": jpipe.det_vars, "arc_mod": jpipe.arc_vars,
+               "gen_mod": jpipe.gen_vars, "lmk_mod": jpipe.lmk_vars}
+    for name, ref in refs.items():
+        _assert_same_tensors(getattr(tpipe, name),
+                             _bridged(ref, vars_of[name]))
+    assert tpipe.gen_mod.generator.blk1.aad0.fused_aad
+    seat, sr_vars = jpipe.sr
+    _assert_same_tensors(tpipe.sr.student,
+                         _bridged(srvgg_from_variables(sr_vars, policy=p),
+                                  sr_vars))
+    assert dataclasses.asdict(tpipe.cfg) == dataclasses.asdict(jpipe.cfg)
+
+
+# --------------------------------------------------------------- CLI runs
+def test_image_run_writes_swap_image_fused(files, loaded, capsys):
+    """main on the image path writes the target's shape; the png equals
+    swap_image_fused on the same pipeline bit for bit, and the blend is
+    real."""
+    out = str(files["dir"] / "out.png")
+    tcli.main(_argv(files, *SR, "--image_to_image", "1", "--target_image",
+                    files["tgt"], "--out_image_name", out), device="cpu")
+    assert "Swapped Image saved" in capsys.readouterr().out
+    written, target = read_image_rgb(out), read_image_rgb(files["tgt"])
+    assert written.shape == target.shape
+    _, tpipe = loaded
+    sources = tcli.crop_or_center(tpipe, files["src"])[None]
+    np.testing.assert_array_equal(written,
+                                  tpipe.swap_image_fused(target, sources))
+    assert (written != target).mean() > 0.01
+
+
+@pytest.mark.parametrize("mode", ["streaming", "frames", "streaming_sr"])
+def test_video_run_writes_every_frame(files, mode, capsys):
+    out = str(files["dir"] / f"{mode}.mp4")
+    extra = ["--target_video", files["mp4"], "--out_video_name", out,
+             "--streaming", "0" if mode == "frames" else "1"]
+    if mode == "streaming_sr":
+        extra += list(SR)
+    tcli.main(_argv(files, *extra, "--allow_random_weights", "1",
+                    arcface="tiny"), device="cpu")
+    printed = capsys.readouterr().out
+    # the JAX rule: tiny ignores --arcface_path and takes random weights
+    assert "WARNING: random ArcFace weights" in printed
+    assert "Video saved with path" in printed
+    frames, fps = read_video(out)
+    source, _ = read_video(files["mp4"])
+    assert frames.shape == (N_FRAMES, *HW, 3) and fps == 25.0
+    assert (frames != source).mean() > 0.01  # the swap is blended in
+
+
+# ---------------------------------------------------------------- refusals
+def test_main_needs_a_card_by_default(files):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(_argv(files, "--image_to_image", "1", "--target_image",
+                        files["tgt"]))
+
+
+@pytest.mark.parametrize("extra,waits_for", [
+    (["--enhance_output", "face"], "ghost_tpu/pipeline/enhance.py"),
+    (["--enhance_output", "full"], "ghost_tpu/pipeline/enhance.py"),
+    (["--detector_path", "scrfd_10g_bnkps.onnx"],
+     "ghost_tpu/models/scrfd_onnx.py"),
+    (["--detector_path", "model_25GF.pth"], "ghost_tpu/models/scrfd_v1e.py"),
+    (["--arcface_path", "glintr100.onnx"],
+     "ghost_tpu/models/arcface_onnx.py"),
+])
+def test_unported_routes_raise_before_loading(extra, waits_for):
+    """Each route whose model is not ported raises SystemExit naming the
+    JAX module it waits for, before any weight is read (the G path does
+    not exist and no random weights are allowed)."""
+    argv = ["--G_path", "missing.pth", "--source_paths", "a.png", *extra]
+    with pytest.raises(SystemExit, match=waits_for):
+        tcli.main(argv, device="cpu")
+
+
+# ------------------------------------------------------------------- card
+@pytest.mark.gpu
+def test_image_run_on_card(tmp_path):
+    """The image path on the card at the CPU test's size: main writes
+    the target's shape; with the face templates injected into a loaded
+    pipeline, the split-off run writes swap_image_fused's frame, every
+    AADLayer runs K1, and the blend is real."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+    from ghost_tpu_torch.ops.cuda.aad import aad_modulate
+    from ghost_tpu_torch.utils.face_template import (
+        inject_detection_template, inject_landmark_template)
+
+    rng = np.random.default_rng(21)
+    f = write_media(tmp_path, rng, HW, N_FRAMES)
+    f["G"], f["arc"] = str(tmp_path / "G.pth"), str(tmp_path / "arc.pth")
+    save_pth(f["G"], aei_state_dict(rng, "unet", 2, 1 / 16))
+    save_pth(f["arc"], arcface_state_dict(rng, (3, 4, 6, 3)))
+    out = str(tmp_path / "out.png")
+    argv = ["--G_path", f["G"], "--width", "0.0625", "--arcface_path",
+            f["arc"], "--arcface_depth", "iresnet34",
+            "--allow_random_weights", "1", "--det_size", "320",
+            "--batch_size", "2", "--bf16", "", "--source_paths", f["src"],
+            "--image_to_image", "1", "--target_image", f["tgt"],
+            "--out_image_name", out]
+    tcli.main(argv)
+    target = read_image_rgb(f["tgt"])
+    assert read_image_rgb(out).shape == target.shape
+
+    args = tcli.build_parser().parse_args(argv)
+    pipe = tcli.load_pipeline(args)
+    assert pipe.device.type == "cuda"
+    inject_detection_template(pipe.det_mod)
+    inject_landmark_template(pipe.lmk_mod)
+    before = aad_modulate.launches
+    tcli.run(args, pipe)
+    assert aad_modulate.launches > before
+    written = read_image_rgb(out)
+    sources = tcli.crop_or_center(pipe, f["src"])[None]
+    np.testing.assert_array_equal(written,
+                                  pipe.swap_image_fused(target, sources))
+    assert (written != target).mean() > 0.01
