@@ -98,11 +98,32 @@ exits non-zero without its result lines:
               end; then `run(args, pipe)` on a loaded pipeline: its png
               equals `swap_image_fused` bit for bit and changes the face
               box
+ 18. routes   the reference's own packs behind the CLI's `.onnx` / `.pth`
+              routes (`tests/torch_route_inputs.py`, on phase 17's
+              files): ArcFaceOnnx on the full-width iresnet100 graph
+              emitted from phase 17's backbone.pth against IResNet (f32,
+              8 crops, 1e-4 relative), SCRFDOnnx on a full-width graph
+              emitted from the templated SCRFD against that module (8
+              letterboxed 1080p frames at 640: the same faces, kps within
+              1e-2 px), each timed beside the native module (CUDA
+              events; host us per call and per node); every float the
+              executor returns on the card; SCRFDV1e at both archs from
+              seeded mmdet `.pth` files, card vs CPU (f32, 1e-4); then
+              `main(argv)` with `--detector_path *.onnx --arcface_path
+              *.onnx`: image (21 K1 launches) and 20-frame streaming
+              (147), each decoded back, wall and frames/s; the image
+              again in f32 against the same run through the native
+              modules (< 5% of values differ, all but 0.1% of them by at
+              most 3 grey levels: the rest are the hull mask's edge
+              pixels, whose hard threshold a 1e-5 relative change of the
+              embedding can move), and with the detector route alone;
+              and an image run with an mmdet `--detector_path *.pth`
+              that completes with its no-kps warning
 
-Each path (5, 8, 9, 13, 14 and each run of 17) runs with every launch
-count set to 0 just before it and read just after; the counts of 5, 8, 9
-and 13 go into the kernels line as `launches`, those of 17 as
-`cli_launches`.
+Each path (5, 8, 9, 13, 14 and each CLI run of 17 and 18) runs with
+every launch count set to 0 just before it and read just after; the
+counts of 5, 8, 9 and 13 go into the kernels line as `launches`, those
+of 17 as `cli_launches`, those of 18 as `route_launches`.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -117,6 +138,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -210,6 +232,14 @@ VIDEO = dict(frames=20, hw=(1080, 1920), chunk=8, identities=2)
 # frames; the runs of `main` (extra flags after the shared ones)
 CLI = dict(frames=20, hw=(1080, 1920), fps=25.0, batch=8, width=1.0,
            arcface_depth="iresnet100", arcface_layers=(3, 13, 30, 3))
+# the routes phase: crops for ArcFaceOnnx, 1080p frames for SCRFDOnnx,
+# timed calls, and the K1 launches of its image and 20-frame streaming
+# runs (as phase 17's: one generator pass, then 7)
+ROUTES = dict(crops=8, frames=8, iters=10, k1={"image": 21, "stream": 147})
+# the share of an image's values that may differ by more than 3 grey
+# levels from the native modules' run: the hull mask's edge pixels (see
+# `phase_routes`)
+ROUTE_EDGE_SHARE = 1e-3
 CLI_RUNS = (("image", ("--image_to_image", "1")),
             ("stream", ("--streaming", "1")),
             ("frames", ("--streaming", "0")),
@@ -2069,11 +2099,14 @@ def phase_grads(device, card):
 
 @contextlib.contextmanager
 def _templated_cli():
-    """`inference.load_pipeline` pins the random detector and landmark
-    heads to face templates (as `build_random_pipeline(inject_templates=
-    True)` does): a random SCRFD scores no anchor above det_thresh, so no
-    lane would be present and no generator would run."""
+    """`inference.load_pipeline` pins the random landmark head, and a
+    native SCRFD's head, to face templates (as `build_random_pipeline(
+    inject_templates=True)` does): a random SCRFD scores no anchor above
+    det_thresh, so no lane would be present and no generator would run.
+    An ONNX detector (phase 18's graph was emitted from a templated
+    SCRFD) or an mmdet `.pth` one is left as loaded."""
     from ghost_tpu_torch.cli import inference
+    from ghost_tpu_torch.models.scrfd import SCRFD
     from ghost_tpu_torch.utils.face_template import (
         inject_detection_template, inject_landmark_template)
 
@@ -2081,7 +2114,8 @@ def _templated_cli():
 
     def load_templated(*args, **kwargs):
         pipe = load(*args, **kwargs)
-        inject_detection_template(pipe.det_mod)
+        if isinstance(pipe.det_mod, SCRFD):
+            inject_detection_template(pipe.det_mod)
         inject_landmark_template(pipe.lmk_mod)
         return pipe
 
@@ -2092,18 +2126,45 @@ def _templated_cli():
         inference.load_pipeline = load
 
 
-def _cli_inputs():
-    """`tests/torch_cli_inputs.py` (numpy only: the reference's state
-    dicts and the media files), loaded from its path: on the card's
-    machine `import tests` finds another package than the repository's
-    directory."""
+def _test_inputs(name):
+    """`tests/{name}.py` (`torch_cli_inputs`: the reference's state dicts
+    and the media files; `torch_route_inputs`: the mmdet dicts and the
+    SCRFD graph emitter, which imports the first), loaded from its path
+    and registered under its name: on the card's machine `import tests`
+    finds another package than the repository's directory."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "tests" / "torch_cli_inputs.py"
-    spec = importlib.util.spec_from_file_location("torch_cli_inputs", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    if name not in sys.modules:
+        path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def cli_files(d):
+    """Phase 17's inputs, which phase 18 reuses, in directory d: a 1080p
+    source/target png pair, a 20-frame 1080p mp4 and seeded full-width
+    `.pth` files with the reference's names (G unet 2 blocks, iresnet100
+    `backbone.pth`). Returns their paths (and d as "dir")."""
+    import numpy as np
+
+    inputs = _test_inputs("torch_cli_inputs")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    f = inputs.write_media(d, rng, CLI["hw"], CLI["frames"], CLI["fps"])
+    f["G"], f["arc"] = f"{d}/G_unet_2blocks.pth", f"{d}/backbone.pth"
+    inputs.save_pth(f["G"], inputs.aei_state_dict(rng, "unet", 2,
+                                                  CLI["width"]))
+    inputs.save_pth(f["arc"],
+                    inputs.arcface_state_dict(rng, CLI["arcface_layers"]))
+    mib = sum(Path(f[k]).stat().st_size for k in ("G", "arc")) / 2 ** 20
+    log(f"cli: wrote the .pth files ({mib:.0f} MiB), the {CLI['hw']} "
+        f"pngs and the {CLI['frames']}-frame mp4 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    f["dir"] = d
+    return f
 
 
 def _cli_call(fn):
@@ -2145,11 +2206,11 @@ def _face_box(pipe, image):
             min(int(y1) + 1, h))
 
 
-def phase_cli(card):
+def phase_cli(card, f):
     """The swap CLI (`python -m ghost_tpu_torch.cli.inference`) through
-    `main(argv)` on seeded full-width `.pth` files with the reference's
-    names (G unet 2 blocks, iresnet100), a 1080p png pair and a 20-frame
-    1080p mp4, in a temporary directory: the image path, the streaming
+    `main(argv)` on `cli_files` `f` (seeded full-width `.pth` files with
+    the reference's names, G unet 2 blocks and iresnet100, a 1080p png
+    pair and a 20-frame 1080p mp4): the image path, the streaming
     and the frames video paths, and streaming with the SRVGG student
     seat; each output decoded back, K1 (and S2 with the seat) launched,
     wall and frames/s end to end (weights, decode, swap, encode). The
@@ -2183,110 +2244,99 @@ def phase_cli(card):
     frames_logger.addHandler(ring_log)
     frames_logger.setLevel(logging.INFO)
     try:
-        return _cli_runs(card, ring_log)
+        return _cli_runs(card, ring_log, f)
     finally:
         frames_logger.removeHandler(ring_log)
 
 
-def _cli_runs(card, ring_log):
-    import tempfile
+def _cli_base(f):
+    """The flags every CLI run of phases 17 and 18 shares."""
+    return ["--G_path", f["G"], "--width", str(CLI["width"]),
+            "--arcface_path", f["arc"],
+            "--arcface_depth", CLI["arcface_depth"],
+            "--allow_random_weights", "1",
+            "--batch_size", str(CLI["batch"]), "--source_paths", f["src"]]
 
+
+def _cli_runs(card, ring_log, f):
     import numpy as np
 
     from ghost_tpu_torch.cli import inference
     from ghost_tpu_torch.pipeline.image import read_image_rgb
     from ghost_tpu_torch.pipeline.video import read_video
 
-    inputs = _cli_inputs()
-
     launches = {}
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(0)
-        f = inputs.write_media(d, rng, CLI["hw"], CLI["frames"], CLI["fps"])
-        g_path, arc_path = f"{d}/G_unet_2blocks.pth", f"{d}/backbone.pth"
-        inputs.save_pth(g_path, inputs.aei_state_dict(rng, "unet", 2,
-                                                      CLI["width"]))
-        inputs.save_pth(arc_path,
-                        inputs.arcface_state_dict(rng, CLI["arcface_layers"]))
-        mib = sum(Path(p).stat().st_size for p in (g_path, arc_path)) / 2 ** 20
-        log(f"cli: wrote the .pth files ({mib:.0f} MiB), the {CLI['hw']} "
-            f"pngs and the {CLI['frames']}-frame mp4 in "
-            f"{time.perf_counter() - t0:.1f} s")
-        base = ["--G_path", g_path, "--width", str(CLI["width"]),
-                "--arcface_path", arc_path,
-                "--arcface_depth", CLI["arcface_depth"],
-                "--allow_random_weights", "1",
-                "--batch_size", str(CLI["batch"]), "--source_paths", f["src"]]
-        target = read_image_rgb(f["tgt"])
-        for name, extra in CLI_RUNS:
-            out = f"{d}/{name}." + ("png" if name == "image" else "mp4")
-            io_args = (["--target_image", f["tgt"], "--out_image_name", out]
-                       if name == "image" else
-                       ["--target_video", f["mp4"], "--out_video_name", out])
-            argv = base + list(extra) + io_args
-            zero_counts()
-            with _templated_cli():
-                wall, lines, _ = _cli_call(lambda: inference.main(argv))
-            counts = read_counts()
-            launches[name] = counts
-            for line in lines:
-                log(f"  cli {name} | {line}")
-            if name == "image":
-                got = read_image_rgb(out)
-                n = 1
-                if got.shape != target.shape:
-                    raise AssertionError(f"cli image: {got.shape}")
-            else:
-                got, fps = read_video(out)
-                n = got.shape[0]
-                if got.shape != (CLI["frames"], *CLI["hw"], 3) \
-                        or fps != CLI["fps"]:
-                    raise AssertionError(f"cli {name}: decoded {got.shape} "
-                                         f"at {fps} fps")
-            total = [ln for ln in lines if ln.startswith("Total time")]
-            log(f"cli {name}: main() {wall:.2f} s wall, {n / wall:.2f} "
-                f"frames/s end to end (weights, decode, swap, encode; "
-                f"{total[0] if total else 'no Total time line'}); K1 "
-                f"launches {counts['aad_modulate']}, S2 "
-                f"{counts['conv3x3']}; {n} frames of "
-                f"{got.shape[-3]}x{got.shape[-2]} decoded back ({card})")
-            if counts["aad_modulate"] <= 0:
-                raise AssertionError(f"cli {name}: K1 never launched")
-            if name == "stream_sr" and counts["conv3x3"] <= 0:
-                raise AssertionError("cli stream_sr: S2 never launched")
-        rings = [r.getMessage() for r in ring_log.buffer]
-        log(f"cli: the streaming runs' rings: {rings}")
-        if len(rings) != 2 or not all("native ring" in r for r in rings):
-            raise AssertionError("cli: a streaming run did not take the "
-                                 "native ring")
-
-        # a real blend through the split-off run, bit for bit
-        out = f"{d}/real.png"
-        args = inference.build_parser().parse_args(
-            base + ["--image_to_image", "1", "--target_image", f["tgt"],
-                    "--out_image_name", out])
-        with _templated_cli() as load:
-            load_s, _, pipe = _cli_call(lambda: load(args))
+    d = f["dir"]
+    base = _cli_base(f)
+    target = read_image_rgb(f["tgt"])
+    for name, extra in CLI_RUNS:
+        out = f"{d}/{name}." + ("png" if name == "image" else "mp4")
+        io_args = (["--target_image", f["tgt"], "--out_image_name", out]
+                   if name == "image" else
+                   ["--target_video", f["mp4"], "--out_video_name", out])
+        argv = base + list(extra) + io_args
         zero_counts()
-        wall, _, _ = _cli_call(lambda: inference.run(args, pipe))
+        with _templated_cli():
+            wall, lines, _ = _cli_call(lambda: inference.main(argv))
         counts = read_counts()
-        written = read_image_rgb(out)
-        sources = inference.crop_or_center(pipe, f["src"])[None]
-        ref = pipe.swap_image_fused(target, sources)
-        x0, y0, x1, y1 = _face_box(pipe, target)
-        inside = float((written[y0:y1, x0:x1] != target[y0:y1, x0:x1]).mean())
-        log(f"cli run(args, pipe) with face templates: {wall:.2f} s, K1 "
-            f"launches {counts['aad_modulate']}; equal to swap_image_fused: "
-            f"{np.array_equal(written, ref)}; {inside:.2%} of the values in "
-            f"the face box ({x0},{y0})-({x1},{y1}) changed; "
-            f"{float((written != target).mean()):.2%} of the image ({card})")
-        if not np.array_equal(written, ref):
-            raise AssertionError("cli: the written image differs from "
-                                 "swap_image_fused")
-        if not inside > 0 or counts["aad_modulate"] <= 0:
-            raise AssertionError("cli: no blend inside the face box")
-        _cli_breakdown(card, f, pipe, sources, load_s, d)
+        launches[name] = counts
+        for line in lines:
+            log(f"  cli {name} | {line}")
+        if name == "image":
+            got = read_image_rgb(out)
+            n = 1
+            if got.shape != target.shape:
+                raise AssertionError(f"cli image: {got.shape}")
+        else:
+            got, fps = read_video(out)
+            n = got.shape[0]
+            if got.shape != (CLI["frames"], *CLI["hw"], 3) \
+                    or fps != CLI["fps"]:
+                raise AssertionError(f"cli {name}: decoded {got.shape} "
+                                     f"at {fps} fps")
+        total = [ln for ln in lines if ln.startswith("Total time")]
+        log(f"cli {name}: main() {wall:.2f} s wall, {n / wall:.2f} "
+            f"frames/s end to end (weights, decode, swap, encode; "
+            f"{total[0] if total else 'no Total time line'}); K1 "
+            f"launches {counts['aad_modulate']}, S2 "
+            f"{counts['conv3x3']}; {n} frames of "
+            f"{got.shape[-3]}x{got.shape[-2]} decoded back ({card})")
+        if counts["aad_modulate"] <= 0:
+            raise AssertionError(f"cli {name}: K1 never launched")
+        if name == "stream_sr" and counts["conv3x3"] <= 0:
+            raise AssertionError("cli stream_sr: S2 never launched")
+    rings = [r.getMessage() for r in ring_log.buffer]
+    log(f"cli: the streaming runs' rings: {rings}")
+    if len(rings) != 2 or not all("native ring" in r for r in rings):
+        raise AssertionError("cli: a streaming run did not take the "
+                             "native ring")
+
+    # a real blend through the split-off run, bit for bit
+    out = f"{d}/real.png"
+    args = inference.build_parser().parse_args(
+        base + ["--image_to_image", "1", "--target_image", f["tgt"],
+                "--out_image_name", out])
+    with _templated_cli() as load:
+        load_s, _, pipe = _cli_call(lambda: load(args))
+    zero_counts()
+    wall, _, _ = _cli_call(lambda: inference.run(args, pipe))
+    counts = read_counts()
+    written = read_image_rgb(out)
+    sources = inference.crop_or_center(pipe, f["src"])[None]
+    ref = pipe.swap_image_fused(target, sources)
+    x0, y0, x1, y1 = _face_box(pipe, target)
+    inside = float((written[y0:y1, x0:x1] != target[y0:y1, x0:x1]).mean())
+    log(f"cli run(args, pipe) with face templates: {wall:.2f} s, K1 "
+        f"launches {counts['aad_modulate']}; equal to swap_image_fused: "
+        f"{np.array_equal(written, ref)}; {inside:.2%} of the values in "
+        f"the face box ({x0},{y0})-({x1},{y1}) changed; "
+        f"{float((written != target).mean()):.2%} of the image ({card})")
+    if not np.array_equal(written, ref):
+        raise AssertionError("cli: the written image differs from "
+                             "swap_image_fused")
+    if not inside > 0 or counts["aad_modulate"] <= 0:
+        raise AssertionError("cli: no blend inside the face box")
+    _cli_breakdown(card, f, pipe, sources, load_s, d)
     return launches
 
 
@@ -2324,6 +2374,306 @@ def _cli_breakdown(card, f, pipe, sources, load_s, d):
         f"({n / encode_s:.1f} frames/s) ({card})")
 
 
+# ---------------------------------------------------------------------------
+# The reference's own detector and recognizer packs (phase 18)
+# ---------------------------------------------------------------------------
+
+
+def _call_times(fn):
+    """(ms per call by CUDA events, host us per call without a sync)."""
+    return (_time_one(fn, ROUTES["iters"], "cuda"),
+            _host_us(fn, ROUTES["iters"], "cuda"))
+
+
+def _floats_on_card(ex, feeds, what):
+    """Every float the executor returns lies on the card."""
+    import torch
+
+    outs = ex(feeds)
+    bad = [i for i, o in enumerate(outs)
+           if not (isinstance(o, torch.Tensor) and o.is_floating_point()
+                   and o.device.type == "cuda")]
+    log(f"routes: {what}: {len(outs)} outputs, every one a float tensor on "
+        f"the card: {not bad}")
+    if bad:
+        raise AssertionError(f"routes: {what}: outputs {bad} are not float "
+                             "tensors on the card")
+
+
+def _routes_arcface(card, f, d):
+    """ArcFaceOnnx on the full-width iresnet100 graph emitted from phase
+    17's backbone.pth against the port's IResNet on the same weights,
+    f32, 8 crops of 112; returns the graph's path."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.onnx_emit import emit_arcface
+    from ghost_tpu_torch.convert.onnx_writer import save_onnx
+    from ghost_tpu_torch.convert.torch_loader import (
+        convert_arcface_state_dict, load_torch_checkpoint)
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.arcface import IResNet
+    from ghost_tpu_torch.models.arcface_onnx import ArcFaceOnnx
+
+    layers = CLI["arcface_layers"]
+    t0 = time.perf_counter()
+    tree = convert_arcface_state_dict(load_torch_checkpoint(f["arc"]),
+                                      layers=layers)
+    path = f"{d}/glintr100.onnx"
+    save_onnx(path, emit_arcface(tree, layers=layers))
+    t1 = time.perf_counter()
+    arc = ArcFaceOnnx(path)
+    t2 = time.perf_counter()
+    native = load_flax_variables(IResNet(layers, policy=FULL_PRECISION),
+                                 tree).cuda().eval()
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (ROUTES["crops"], 112, 112, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        got, ref = arc(x), native(x)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        onnx_ms, onnx_host = _call_times(lambda: arc(x))
+        nat_ms, nat_host = _call_times(lambda: native(x))
+        _floats_on_card(arc._ex, {arc.input_name: x.permute(0, 3, 1, 2)},
+                        "ArcFaceOnnx's executor")
+    n = len(arc._ex.graph.nodes)
+    log(f"routes: iresnet100 graph {Path(path).stat().st_size / 2 ** 20:.0f}"
+        f" MiB, {n} nodes, written in {t1 - t0:.1f} s, ArcFaceOnnx built "
+        f"in {t2 - t1:.1f} s")
+    log(f"routes: ArcFaceOnnx vs IResNet (f32, {ROUTES['crops']} crops of "
+        f"112): max err {err:.2e} of max|ref| (<= 1e-4); per call "
+        f"{onnx_ms:.3f} ms (host {onnx_host:.0f} us, "
+        f"{onnx_host / n:.1f} us a node) vs native {nat_ms:.3f} ms (host "
+        f"{nat_host:.0f} us) ({card})")
+    if not err <= 1e-4 or tuple(got.shape) != (ROUTES["crops"], 512):
+        raise AssertionError("routes: ArcFaceOnnx disagrees with IResNet")
+    return path
+
+
+def _routes_scrfd(card, routes_in, d):
+    """SCRFDOnnx on graph (c), emitted from the port's templated
+    full-width SCRFD (f32), against that module on a chunk of 8
+    letterboxed 1080p frames at 640: the same faces, kps within 1e-2 px
+    in frame pixels. Returns the graph's path and the native module."""
+    import torch
+
+    from ghost_tpu_torch.convert.onnx_writer import save_onnx
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.scrfd import (SCRFD, decode_detections,
+                                              preprocess_frames)
+    from ghost_tpu_torch.models.scrfd_onnx import SCRFDOnnx
+    from ghost_tpu_torch.nn.layers import init_weights
+    from ghost_tpu_torch.utils.face_template import inject_detection_template
+
+    native = inject_detection_template(init_weights(
+        SCRFD(policy=FULL_PRECISION), torch.Generator().manual_seed(0)))
+    path = f"{d}/scrfd_10g_bnkps.onnx"
+    save_onnx(path, routes_in.emit_scrfd(native.eval()))
+    native.cuda()
+    det = SCRFDOnnx(path, input_size=640)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    frames = torch.randint(0, 256, (ROUTES["frames"], 1080, 1920, 3),
+                           generator=g, device="cuda", dtype=torch.uint8)
+    with torch.inference_mode():
+        canvas, scale = preprocess_frames(frames, 640)
+        got = decode_detections(det(canvas), 640, max_faces=4)
+        ref = decode_detections(native(canvas), 640, max_faces=4)
+        s_err = float((got[0] - ref[0]).abs().max())
+        b_err = float((got[1] - ref[1]).abs().max() / scale)
+        k_err = float((got[2] - ref[2]).abs().max() / scale)
+        faces = int((ref[0] > 0).sum())
+        onnx_ms, onnx_host = _call_times(lambda: det(canvas))
+        nat_ms, nat_host = _call_times(lambda: native(canvas))
+        _floats_on_card(det._ex, {det.input_name: canvas.float().permute(
+            0, 3, 1, 2)}, "SCRFDOnnx's executor")
+    n = len(det._ex.graph.nodes)
+    log(f"routes: SCRFDOnnx vs SCRFD (f32, graph of {n} nodes, "
+        f"{ROUTES['frames']} letterboxed 1080p frames at 640): {faces} "
+        f"faces each; scores {s_err:.2e}, boxes {b_err:.2e} px, kps "
+        f"{k_err:.2e} px (<= 1e-2); per call {onnx_ms:.3f} ms (host "
+        f"{onnx_host:.0f} us, {onnx_host / n:.1f} us a node) vs native "
+        f"{nat_ms:.3f} ms (host {nat_host:.0f} us) ({card})")
+    if not (faces > 0 and bool(((got[0] > 0) == (ref[0] > 0)).all())
+            and s_err <= 1e-5 and k_err <= 1e-2):
+        raise AssertionError("routes: SCRFDOnnx's faces differ from SCRFD's")
+    return path, native
+
+
+def _routes_v1e(card, routes_in, d):
+    """SCRFDV1e at both archs from seeded mmdet `.pth` files, the card
+    against the CPU in f32; returns the 2.5GF file's path."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.torch_loader import (
+        convert_scrfd_state_dict, load_torch_checkpoint)
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models import scrfd_v1e
+
+    inputs = _test_inputs("torch_cli_inputs")
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (2, 640, 640, 3)).astype(np.float32))
+    paths = {}
+    for name in ("SCRFD_2_5GF", "SCRFD_10GF_KPS"):
+        arch = getattr(scrfd_v1e, name)
+        paths[name] = f"{d}/{name}.pth"
+        inputs.save_pth(paths[name], routes_in.scrfd_mmdet_state_dict(
+            np.random.default_rng(4), arch))
+        tree = convert_scrfd_state_dict(load_torch_checkpoint(paths[name]),
+                                        arch=arch)
+        cpu = load_flax_variables(scrfd_v1e.SCRFDV1e(
+            arch, policy=FULL_PRECISION), tree).eval()
+        card_mod, x_card = copy.deepcopy(cpu).cuda(), x.cuda()
+        with torch.inference_mode():
+            ref = [m for lvl in cpu(x) for m in lvl]
+            got = [m.cpu() for lvl in card_mod(x_card) for m in lvl]
+            ms = _time_one(lambda: card_mod(x_card), ROUTES["iters"], "cuda")
+        err = max(float((g - r).abs().max() / max(1.0, r.abs().max()))
+                  for g, r in zip(got, ref))
+        log(f"routes: SCRFDV1e {name} card vs CPU (f32, 2x640): max err "
+            f"{err:.2e} (<= 1e-4, of max(1, max|ref|)); {ms:.3f} ms a "
+            f"call on the card ({card})")
+        if not err <= 1e-4:
+            raise AssertionError(f"routes: SCRFDV1e {name} card vs CPU")
+    return paths["SCRFD_2_5GF"]
+
+
+def phase_routes(card, f):
+    """The reference's packs behind the CLI's `.onnx` / `.pth` routes, on
+    phase 17's files: ArcFaceOnnx, SCRFDOnnx and SCRFDV1e against the
+    native modules, then `main(argv)` through the routes (image and
+    streaming video, each decoded back; the image against the same run
+    through the native modules) and an mmdet `.pth` image run. Returns
+    the launches of each CLI run."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.cli import inference
+    from ghost_tpu_torch.pipeline.image import read_image_rgb
+    from ghost_tpu_torch.pipeline.video import read_video
+    from ghost_tpu_torch.utils.face_template import inject_landmark_template
+
+    _test_inputs("torch_cli_inputs")
+    routes_in = _test_inputs("torch_route_inputs")
+    d = f["dir"]
+    arc_onnx = _routes_arcface(card, f, d)
+    det_onnx, det_native = _routes_scrfd(card, routes_in, d)
+    mmdet = _routes_v1e(card, routes_in, d)
+
+    base = _cli_base(f)
+    routes = ["--detector_path", det_onnx, "--arcface_path", arc_onnx]
+    target = read_image_rgb(f["tgt"])
+    launches = {}
+    for name, io_args, n in (
+            ("image", ["--image_to_image", "1", "--target_image", f["tgt"],
+                       "--out_image_name", f"{d}/route.png"], 1),
+            ("stream", ["--streaming", "1", "--target_video", f["mp4"],
+                        "--out_video_name", f"{d}/route.mp4"],
+             CLI["frames"])):
+        argv = base + routes + io_args
+        zero_counts()
+        with _templated_cli():
+            wall, lines, _ = _cli_call(lambda: inference.main(argv))
+        launches[name] = read_counts()
+        for line in lines:
+            log(f"  routes {name} | {line}")
+        got = read_image_rgb(f"{d}/route.png") if name == "image" else \
+            read_video(f"{d}/route.mp4")[0]
+        k1 = launches[name]["aad_modulate"]
+        log(f"routes cli {name} (--detector_path *.onnx --arcface_path "
+            f"*.onnx): main() {wall:.2f} s wall, {n / wall:.2f} frames/s end "
+            f"to end; K1 launches {k1}; decoded {tuple(got.shape)} ({card})")
+        want = (target.shape if name == "image"
+                else (CLI["frames"], *CLI["hw"], 3))
+        if tuple(got.shape) != tuple(want) or k1 != ROUTES["k1"][name]:
+            raise AssertionError(f"routes cli {name}: {tuple(got.shape)}, "
+                                 f"K1 {k1} (want {ROUTES['k1'][name]})")
+        if any("random detector" in ln or "random ArcFace" in ln
+               for ln in lines):
+            raise AssertionError(f"routes cli {name}: a random model loaded")
+
+    # the image run again in f32 (--bf16 ""), and the same run through the
+    # native modules: the SCRFD the graph was emitted from and IResNet on
+    # backbone.pth. In bf16 the generator rounds z_id, so the embeddings'
+    # 1e-5 relative difference can move a rounding and the frame by more
+    # than the bound; in f32 it moves the frame by far less, except where
+    # it moves an edge pixel of the hull mask across its hard threshold
+    # (`ops/mask.py`: sd >= erode, then the blur): there a few hundred
+    # values near the face's edge move by up to ~10 grey levels. So phase
+    # 4's bound (<= 3 grey levels, < 5% of values differing) holds on all
+    # but ROUTE_EDGE_SHARE of the values.
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.torch_loader import (
+        convert_arcface_state_dict, load_torch_checkpoint)
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.arcface import IResNet
+    from ghost_tpu_torch.models.scrfd_onnx import SCRFDOnnx
+
+    f32_image = ["--bf16", "", "--image_to_image", "1", "--target_image",
+                 f["tgt"]]
+    argv = base + routes + f32_image + ["--out_image_name",
+                                        f"{d}/route_f32.png"]
+    zero_counts()
+    with _templated_cli():
+        _cli_call(lambda: inference.main(argv))
+    k1_f32 = read_counts()["aad_modulate"]
+    args = inference.build_parser().parse_args(
+        base + f32_image + ["--out_image_name", f"{d}/native.png"])
+    _, _, pipe = _cli_call(lambda: inference.load_pipeline(args))
+    pipe.det_mod = det_native
+    pipe.arc_mod = load_flax_variables(
+        IResNet(CLI["arcface_layers"], policy=FULL_PRECISION),
+        convert_arcface_state_dict(load_torch_checkpoint(f["arc"]),
+                                   layers=CLI["arcface_layers"])).cuda().eval()
+    inject_landmark_template(pipe.lmk_mod)
+    _cli_call(lambda: inference.run(args, pipe))
+    native = read_image_rgb(f"{d}/native.png")
+    # the detector route alone (the native ArcFace): where the difference
+    # comes from
+    pipe.det_mod = SCRFDOnnx(det_onnx, input_size=pipe.cfg.det_size)
+    args.out_image_name = f"{d}/det_only.png"
+    _cli_call(lambda: inference.run(args, pipe))
+    for what, path in (("the routes' image", "route_f32.png"),
+                       ("the detector route alone", "det_only.png")):
+        route = read_image_rgb(f"{d}/{path}")
+        diff = np.abs(route.astype(np.int16) - native.astype(np.int16))
+        over = float((diff > 3).mean())
+        log(f"routes: {what} (f32) vs the native modules' run: "
+            f"{(diff > 0).mean():.4%} of values differ (< 5%), "
+            f"{int((diff > 3).sum())} by more than 3 grey levels "
+            f"({over:.4%}, < {ROUTE_EDGE_SHARE:.2%}), max {int(diff.max())}"
+            f"; {float((route != target).mean()):.2%} of the target "
+            f"changed ({card})")
+        if not ((diff > 0).mean() < 0.05 and over < ROUTE_EDGE_SHARE
+                and (route != target).any()):
+            raise AssertionError(f"routes: {what} differs from the native "
+                                 "run")
+    if k1_f32 != ROUTES["k1"]["image"]:
+        raise AssertionError(f"routes: the f32 image run launched K1 "
+                             f"{k1_f32} times")
+
+    # the mmdet route: boxes only
+    argv = base + ["--detector_path", mmdet, "--image_to_image", "1",
+                   "--target_image", f["tgt"], "--out_image_name",
+                   f"{d}/mmdet.png"]
+    zero_counts()
+    with _templated_cli():
+        wall, lines, _ = _cli_call(lambda: inference.main(argv))
+    launches["mmdet_image"] = read_counts()
+    for line in lines:
+        log(f"  routes mmdet | {line}")
+    warned = any("SCRFD-2.5GF has no kps branch" in ln for ln in lines)
+    written = read_image_rgb(f"{d}/mmdet.png")
+    log(f"routes cli mmdet image (--detector_path *.pth): main() {wall:.2f} "
+        f"s wall; K1 launches {launches['mmdet_image']['aad_modulate']}; "
+        f"no-kps warning printed: {warned}; wrote {written.shape} ({card})")
+    if not warned or written.shape != target.shape:
+        raise AssertionError("routes: the mmdet .pth run")
+    torch.cuda.synchronize()
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -2357,7 +2707,10 @@ def main(argv):
     phase_grads(device, card)
     phase_k3_device(device, card, stats)
     phase_k1_device(device, card, stats["aad_modulate"])
-    cli = phase_cli(card)
+    with tempfile.TemporaryDirectory() as d:
+        files = cli_files(d)
+        cli = phase_cli(card, files)
+        routes = phase_routes(card, files)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2371,10 +2724,11 @@ def main(argv):
                         # the CUDA-event times of back-to-back calls
                         **{k: st[k] for k in ("call_ms", "library_call_ms")
                            if k in st},
-                        # the launches of each CLI run (phase 17)
-                        **({"cli_launches": {run: c[name]
-                                             for run, c in cli.items()}}
-                           if any(c[name] for c in cli.values()) else {})})
+                        # the launches of each CLI run (phases 17, 18)
+                        **{key: {run: c[name] for run, c in runs.items()}
+                           for key, runs in (("cli_launches", cli),
+                                             ("route_launches", routes))
+                           if any(c[name] for c in runs.values())}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,18 @@ Usage (on a machine with a CUDA card):
     python -m ghost_tpu_torch.cli.inference --source_paths a.jpg \
         --target_video in.mp4 --out_video_name out.mp4
 
+The reference's own packs load as in the JAX CLI: an `.onnx`
+`--arcface_path` (glintr100.onnx) through `models/arcface_onnx.py`, an
+`.onnx` `--detector_path` (scrfd_10g_bnkps.onnx) through
+`models/scrfd_onnx.py`, both on the port's ONNX executor
+(`convert/onnx_exec.py`), and an mmdet `.pth` `--detector_path`
+(model_25GF.pth) as `models/scrfd_v1e.py:SCRFDV1e` through
+`convert_scrfd_state_dict`.
+
 `main(argv, device="cpu")` runs on the CPU (tests); the command line
-always runs on the card and raises without one. Routes whose models the
-port does not have yet raise SystemExit before any weight is read:
-`--enhance_output face|full` (the GFPGAN / Real-ESRGAN enhancer), an
-`.onnx` `--arcface_path` or `--detector_path`, and an mmdet `.pth`
-`--detector_path`.
+always runs on the card and raises without one. `--enhance_output
+face|full` (the GFPGAN / Real-ESRGAN enhancer, not ported yet) raises
+SystemExit before any weight is read.
 """
 
 from __future__ import annotations
@@ -121,21 +127,6 @@ def _refuse_unported(args) -> None:
             f"--enhance_output {args.enhance_output}: the enhancer "
             "(ghost_tpu/pipeline/enhance.py, GFPGAN and RRDB/SRVGG "
             "background) is not ported to ghost_tpu_torch yet")
-    if args.arcface_path.endswith(".onnx"):
-        raise SystemExit(
-            f"--arcface_path {args.arcface_path}: the ONNX ArcFace "
-            "(ghost_tpu/models/arcface_onnx.py) is not ported to "
-            "ghost_tpu_torch yet")
-    if args.detector_path.endswith(".onnx"):
-        raise SystemExit(
-            f"--detector_path {args.detector_path}: the ONNX SCRFD "
-            "(ghost_tpu/models/scrfd_onnx.py) is not ported to "
-            "ghost_tpu_torch yet")
-    if args.detector_path.endswith(".pth"):
-        raise SystemExit(
-            f"--detector_path {args.detector_path}: the mmdet SCRFD "
-            "(ghost_tpu/models/scrfd_v1e.py with convert_scrfd_state_dict) "
-            "is not ported to ghost_tpu_torch yet")
 
 
 def load_pipeline(args, device="cuda"):
@@ -147,18 +138,22 @@ def load_pipeline(args, device="cuda"):
     random weights (with --allow_random_weights for the generator and
     ArcFace): `init_weights` on a torch.Generator seeded with 0 for each
     model. Those values differ from the JAX CLI's `jax.random.key(0)`
-    draws; weights read from files are the same as the JAX CLI's."""
+    draws; weights read from files are the same as the JAX CLI's. The
+    ONNX adapters compute in f32 whatever `--bf16` says, as in JAX."""
     from ghost_tpu_torch.convert.from_jax import load_flax_variables
     from ghost_tpu_torch.convert.torch_loader import (
         convert_aei_state_dict, convert_arcface_state_dict,
-        load_torch_checkpoint)
+        convert_scrfd_state_dict, load_torch_checkpoint)
     from ghost_tpu_torch.core.checkpoint import load_msgpack
     from ghost_tpu_torch.core.precision import (DEFAULT_POLICY,
                                                 FULL_PRECISION, disable_tf32)
     from ghost_tpu_torch.models.aei import AEINet
     from ghost_tpu_torch.models.arcface import _DEPTHS, IResNet
+    from ghost_tpu_torch.models.arcface_onnx import ArcFaceOnnx
     from ghost_tpu_torch.models.landmark import Landmark106
     from ghost_tpu_torch.models.scrfd import SCRFD
+    from ghost_tpu_torch.models.scrfd_onnx import SCRFDOnnx
+    from ghost_tpu_torch.models.scrfd_v1e import SCRFDV1e
     from ghost_tpu_torch.nn.layers import cast_to_compute_dtype, init_weights
     from ghost_tpu_torch.pipeline.swap import SwapConfig, SwapPipeline
 
@@ -197,25 +192,49 @@ def load_pipeline(args, device="cuda"):
 
     arc_layers = (1, 1, 1, 1) if args.arcface_depth == "tiny" \
         else _DEPTHS[args.arcface_depth]
-    arc = IResNet(layers=arc_layers, policy=policy)
-    # as in the JAX CLI, --arcface_depth tiny ignores --arcface_path and
-    # takes random weights
-    if os.path.exists(args.arcface_path) and args.arcface_depth != "tiny":
-        load_flax_variables(arc, convert_arcface_state_dict(
-            load_torch_checkpoint(args.arcface_path), layers=arc_layers))
-    elif args.allow_random_weights:
-        print("WARNING: random ArcFace weights")
-        seeded(arc)
+    if args.arcface_path.endswith(".onnx"):
+        # insightface recognition pack (glintr100.onnx) on the ONNX
+        # executor, whatever --arcface_depth says
+        arc = ArcFaceOnnx(args.arcface_path, device=device)
     else:
-        raise SystemExit(f"missing --arcface_path {args.arcface_path!r}")
+        arc = IResNet(layers=arc_layers, policy=policy)
+        # as in the JAX CLI, --arcface_depth tiny ignores --arcface_path
+        # and takes random weights
+        if os.path.exists(args.arcface_path) \
+                and args.arcface_depth != "tiny":
+            load_flax_variables(arc, convert_arcface_state_dict(
+                load_torch_checkpoint(args.arcface_path), layers=arc_layers))
+        elif args.allow_random_weights:
+            print("WARNING: random ArcFace weights")
+            seeded(arc)
+        else:
+            raise SystemExit(f"missing --arcface_path {args.arcface_path!r}")
 
-    det = SCRFD(policy=policy)
-    if args.detector_path:
-        load_flax_variables(det, load_msgpack(args.detector_path))
+    if args.detector_path.endswith(".onnx"):
+        # the reference's own detector pack (scrfd_10g_bnkps.onnx) on the
+        # ONNX executor
+        det = SCRFDOnnx(args.detector_path, input_size=cfg.det_size,
+                        device=device)
+        if not det.has_kps:
+            print("WARNING: detector has no kps branch; alignment needs "
+                  "a *_bnkps model")
+    elif args.detector_path.endswith(".pth"):
+        # mmdet SCRFD checkpoint (e.g. SCRFD-2.5GF model_25GF.pth);
+        # boxes only: no kps branch in that family of checkpoints
+        det = load_flax_variables(SCRFDV1e(policy=policy),
+                                  convert_scrfd_state_dict(
+                                      load_torch_checkpoint(
+                                          args.detector_path)))
+        print("WARNING: SCRFD-2.5GF has no kps branch; alignment keypoints "
+              "will be degenerate (detection/boxes only)")
     else:
-        seeded(det)
-        print("WARNING: random detector weights "
-              "(--detector_path not given)")
+        det = SCRFD(policy=policy)
+        if args.detector_path:
+            load_flax_variables(det, load_msgpack(args.detector_path))
+        else:
+            seeded(det)
+            print("WARNING: random detector weights "
+                  "(--detector_path not given)")
     lmk = Landmark106(policy=policy)
     if args.landmark_path:
         load_flax_variables(lmk, load_msgpack(args.landmark_path))
@@ -254,7 +273,9 @@ def load_pipeline(args, device="cuda"):
                 print("WARNING: random SR weights (--sr_path not given)")
         sr = cast_to_compute_dtype(sr.to(device).eval())
 
+    # the ONNX adapters were built on `device` and keep the file's dtypes
     det, arc, gen, lmk = (cast_to_compute_dtype(m.to(device).eval())
+                          if isinstance(m, torch.nn.Module) else m
                           for m in (det, arc, gen, lmk))
     return SwapPipeline(det, arc, gen, lmk, config=cfg, sr=sr)
 

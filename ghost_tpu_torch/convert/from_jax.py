@@ -23,6 +23,8 @@ levels that `ghost_tpu/nn/layers.py` adds (`Conv_0`, `Dense_0`,
   SpectralConv    kernel -> OIHW as Conv (its (cin, kh, kw) flatten is
                   the power-iteration order); bias; 'spectral' u, v
   BatchNorm       with affine=False (SPADE's pfn): batch_stats only
+  GroupNorm       scale/bias -> weight/bias
+  SCRFDHeadShared scale{level}, bare params at the module's own level
 
 Collections read: params, batch_stats, spectral. The bridge is strict: every port tensor is filled exactly once and
 every flax leaf is used exactly once, or it raises.
@@ -36,11 +38,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ghost_tpu_torch.models.scrfd_v1e import SCRFDHeadShared
 from ghost_tpu_torch.models.sr.generator import SimplifiedLIP
 from ghost_tpu_torch.models.sr.spade import SpectralConv
 from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
 from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, Conv3x3, ConvTranspose,
-                                       Dense, PReLU)
+                                       Dense, GroupNorm, PReLU)
 from ghost_tpu_torch.nn.modules import MultiheadAttention, WeightNormDense
 
 _WRAPPERS = frozenset({"Conv_0", "Dense_0", "BatchNorm_0"})
@@ -56,6 +59,8 @@ _LEAF_MAP = {
     (BatchNorm, "bias"): ("bias", None),
     (BatchNorm, "mean"): ("running_mean", None),
     (BatchNorm, "var"): ("running_var", None),
+    (GroupNorm, "scale"): ("weight", None),
+    (GroupNorm, "bias"): ("bias", None),
     (PReLU, "alpha"): ("alpha", None),
     (MultiheadAttention, "ln_scale"): ("ln_scale", None),
     (MultiheadAttention, "ln_bias"): ("ln_bias", None),
@@ -70,7 +75,7 @@ _LEAF_MAP = {
     (SpectralConv, "v"): ("v", None),
 }
 # modules whose own bare parameters are flax leaves of the same name
-_BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP)
+_BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP, SCRFDHeadShared)
 
 
 def _flatten(tree, prefix=()):
@@ -117,7 +122,8 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
                 raise ValueError(f"{collection}/{where}: shape {arr.shape} "
                                  f"does not fit {key} {tuple(dst.shape)}")
             with torch.no_grad():
-                dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(arr))
+                          .reshape(arr.shape))  # a 0-d leaf stays 0-d
             filled.add(key)
     missing = sorted(set(targets) - filled)
     if missing:

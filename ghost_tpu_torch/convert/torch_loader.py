@@ -20,8 +20,10 @@ convs pack into one `attr_gb` kernel and the two id FCs into one
 The port loads the tree with its strict bridge,
 `convert/from_jax.py:load_flax_variables`, which the parity tests hold
 against the JAX models; the converters themselves are pure numpy and do
-not depend on the model's width. The SRVGG `body.N` and SPADE routes of
-the JAX module move with their callers (the enhancer, `cli/convert.py`).
+not depend on the model's width. `convert_scrfd_state_dict` reads the
+mmdet SCRFD checkpoints (`--detector_path *.pth`). The SRVGG `body.N`
+and SPADE routes of the JAX module move with their callers (the
+enhancer, `cli/convert.py`).
 """
 
 from __future__ import annotations
@@ -247,4 +249,76 @@ def convert_arcface_state_dict(sd: Mapping[str, np.ndarray], layers=(3, 13, 30, 
         "mean": sd["features.running_mean"],
         "var": sd["features.running_var"],
     }
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_scrfd_state_dict(sd: Mapping[str, np.ndarray], arch=None):
+    """mmdet SCRFD checkpoint (e.g. the reference's
+    coordinate_reg/model/SCRFD/model_25GF.pth, 226 keys) ->
+    flax-style variables of `models.scrfd_v1e.SCRFDV1e` (the JAX tree's
+    names, which the bridge loads). Topology is recorded in the
+    checkpoint's own meta config (ResNetV1e + PAFPN + shared GN head)."""
+    from ghost_tpu_torch.models.scrfd_v1e import SCRFD_2_5GF
+
+    arch = arch or SCRFD_2_5GF
+    params: Dict = {"backbone": {}, "neck": {}, "head": {}}
+    stats: Dict = {"backbone": {}}
+
+    def put_cbn(dst_p, dst_s, flax_name, conv_t, bn_t):
+        bn_p, bn_s = _bn(sd, bn_t)
+        dst_p[flax_name] = {"conv": {"Conv_0": {"kernel": _conv(sd, conv_t)}},
+                            "bn": {"BatchNorm_0": bn_p}}
+        dst_s[flax_name] = {"bn": {"BatchNorm_0": bn_s}}
+
+    bp, bs = params["backbone"], stats["backbone"]
+    for i, (c, b) in enumerate(((0, 1), (3, 4), (6, 7))):
+        put_cbn(bp, bs, f"stem{i}", f"backbone.stem.{c}", f"backbone.stem.{b}")
+    for s, depth in enumerate(arch.stage_blocks):
+        for blk in range(depth):
+            t = f"backbone.layer{s + 1}.{blk}"
+            f = f"layer{s + 1}_block{blk}"
+            blk_p: Dict = {}
+            blk_s: Dict = {}
+            for c in ("conv1", "conv2"):
+                blk_p[c] = {"Conv_0": {"kernel": _conv(sd, f"{t}.{c}")}}
+            for n in ("bn1", "bn2"):
+                p, st = _bn(sd, f"{t}.{n}")
+                blk_p[n] = {"BatchNorm_0": p}
+                blk_s[n] = {"BatchNorm_0": st}
+            if f"{t}.downsample.1.weight" in sd:
+                blk_p["ds_conv"] = {
+                    "Conv_0": {"kernel": _conv(sd, f"{t}.downsample.1")}
+                }
+                p, st = _bn(sd, f"{t}.downsample.2")
+                blk_p["ds_bn"] = {"BatchNorm_0": p}
+                blk_s["ds_bn"] = {"BatchNorm_0": st}
+            bp[f] = blk_p
+            bs[f] = blk_s
+
+    def biased(name):
+        return {"Conv_0": {"kernel": _conv(sd, name),
+                           "bias": sd[f"{name}.bias"]}}
+
+    npz = params["neck"]
+    n_levels = len(arch.stage_planes) - arch.start_level
+    for i in range(n_levels):
+        npz[f"lateral{i}"] = biased(f"neck.lateral_convs.{i}.conv")
+        npz[f"fpn{i}"] = biased(f"neck.fpn_convs.{i}.conv")
+    for i in range(n_levels - 1):
+        npz[f"down{i}"] = biased(f"neck.downsample_convs.{i}.conv")
+        npz[f"pafpn{i}"] = biased(f"neck.pafpn_convs.{i}.conv")
+
+    hp = params["head"]
+    for i in range(arch.stacked_convs):
+        t = f"bbox_head.cls_stride_convs.0.{i}"
+        hp[f"tower{i}_conv"] = {
+            "Conv_0": {"kernel": _conv(sd, f"{t}.conv")}}
+        hp[f"tower{i}_gn"] = {"scale": sd[f"{t}.gn.weight"],
+                              "bias": sd[f"{t}.gn.bias"]}
+    hp["cls"] = biased("bbox_head.stride_cls.0")
+    hp["reg"] = biased("bbox_head.stride_reg.0")
+    if arch.use_kps:
+        hp["kps"] = biased("bbox_head.stride_kps.0")
+    for lvl in range(n_levels):
+        hp[f"scale{lvl}"] = sd[f"bbox_head.scales.{lvl}.scale"]
     return {"params": params, "batch_stats": stats}

@@ -193,6 +193,41 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class GroupNorm(nn.Module):
+    """GroupNorm over dim 1 (contiguous channel groups) with the numerics
+    of flax.linen's GroupNorm (flax 0.12.3) as
+    `ghost_tpu/models/scrfd_v1e.py` builds it: statistics in f32 with the
+    fast variance max(0, E[x^2] - E[x]^2) (torch's group_norm takes
+    E[(x - E[x])^2]), each mean a sum times the f32 reciprocal of the
+    count (as XLA computes jnp.mean); then (x - mean) * (rsqrt(var +
+    eps) * scale) + bias in f32, cast to `dtype`."""
+
+    def __init__(self, num_groups, features, eps=1e-5, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+
+    def reset_parameters(self, generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        g = self.num_groups
+        xg = x.float().reshape(b, g, c // g, -1)
+        inv_n = 1.0 / (xg.shape[2] * xg.shape[3])
+        mean = xg.sum(dim=(2, 3), keepdim=True) * inv_n
+        mean2 = torch.square(xg).sum(dim=(2, 3), keepdim=True) * inv_n
+        var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.view(1, g, c // g, 1)
+        y = (xg - mean) * mul + self.bias.view(1, g, c // g, 1)
+        return y.reshape(x.shape).to(self.dtype)
+
+
 class PReLU(nn.Module):
     """Per-channel PReLU over dim 1 (init 0.25)."""
 

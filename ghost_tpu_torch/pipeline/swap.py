@@ -114,7 +114,8 @@ def _pad_chunk(frames, bsz):
 
 class SwapPipeline:
     """The four models of the main path, the optional SR seat and the
-    chunk programs.
+    chunk programs. The detector may be `SCRFD`, `SCRFDV1e` or
+    `SCRFDOnnx`, the ArcFace module `IResNet` or `ArcFaceOnnx`.
 
     sr: None, a seat module that owns its weights ([-1,1] NHWC in and
     out at the generator's resolution: `SRVGGStudentSeat`,
@@ -130,7 +131,9 @@ class SwapPipeline:
         self.lmk_mod = landmarker
         self.sr = sr[0] if isinstance(sr, tuple) else sr
         self.cfg = config
-        self.device = next(detector.parameters()).device
+        # an ONNX adapter (models/scrfd_onnx.py) holds no parameters
+        self.device = getattr(detector, "device", None) or \
+            next(detector.parameters()).device
 
     def _tensor(self, x):
         if isinstance(x, torch.Tensor):

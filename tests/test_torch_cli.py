@@ -20,6 +20,7 @@ where jax is not installed:
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +33,8 @@ from ghost_tpu_torch.pipeline.image import read_image_rgb
 from ghost_tpu_torch.pipeline.video import read_video
 from torch_cli_inputs import (aei_state_dict, arcface_state_dict, save_pth,
                               write_media)
+from torch_route_inputs import (emit_scrfd, planted_scrfd_graph,
+                                recognition_graph, scrfd_mmdet_state_dict)
 
 HW = (160, 224)
 N_FRAMES = 5
@@ -252,11 +255,6 @@ def test_main_needs_a_card_by_default(files):
 @pytest.mark.parametrize("extra,waits_for", [
     (["--enhance_output", "face"], "ghost_tpu/pipeline/enhance.py"),
     (["--enhance_output", "full"], "ghost_tpu/pipeline/enhance.py"),
-    (["--detector_path", "scrfd_10g_bnkps.onnx"],
-     "ghost_tpu/models/scrfd_onnx.py"),
-    (["--detector_path", "model_25GF.pth"], "ghost_tpu/models/scrfd_v1e.py"),
-    (["--arcface_path", "glintr100.onnx"],
-     "ghost_tpu/models/arcface_onnx.py"),
 ])
 def test_unported_routes_raise_before_loading(extra, waits_for):
     """Each route whose model is not ported raises SystemExit naming the
@@ -265,6 +263,140 @@ def test_unported_routes_raise_before_loading(extra, waits_for):
     argv = ["--G_path", "missing.pth", "--source_paths", "a.png", *extra]
     with pytest.raises(SystemExit, match=waits_for):
         tcli.main(argv, device="cpu")
+
+
+# ------------------------------------------------------------ pack routes
+@pytest.fixture(scope="module")
+def routes(files):
+    """The reference-pack route files: the planted-head SCRFD graph, a
+    full-width SCRFD graph emitted from the port's templated SCRFD, a
+    recognition-shaped graph and an mmdet SCRFD-2.5GF `.pth`
+    (`tests/torch_route_inputs.py`)."""
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.scrfd import SCRFD
+    from ghost_tpu_torch.models.scrfd_v1e import SCRFD_2_5GF
+    from ghost_tpu_torch.nn.layers import init_weights
+    from ghost_tpu_torch.utils.face_template import inject_detection_template
+
+    d, rng = files["dir"], np.random.default_rng(22)
+    det = inject_detection_template(init_weights(
+        SCRFD(policy=FULL_PRECISION), torch.Generator().manual_seed(0)))
+    paths = {k: str(d / name) for k, name in (
+        ("planted", "planted.onnx"), ("scrfd", "scrfd_10g_bnkps.onnx"),
+        ("rec", "glintr100.onnx"), ("mmdet", "model_25GF.pth"))}
+    for key, blob in (("planted", planted_scrfd_graph()),
+                      ("scrfd", emit_scrfd(det.eval())),
+                      ("rec", recognition_graph(rng))):
+        Path(paths[key]).write_bytes(blob)
+    save_pth(paths["mmdet"], scrfd_mmdet_state_dict(rng, SCRFD_2_5GF))
+    return paths
+
+
+def _jax_and_port(argv):
+    from ghost_tpu.cli import inference as jcli
+
+    return (jcli.load_pipeline(jcli.build_parser().parse_args(argv)),
+            tcli.load_pipeline(tcli.build_parser().parse_args(argv), "cpu"))
+
+
+@pytest.fixture(scope="module")
+def onnx_loaded(files, routes):
+    """Both CLIs' pipelines with `--detector_path *.onnx` (the planted
+    graph) and `--arcface_path *.onnx`."""
+    return _jax_and_port(_argv(files, "--detector_path", routes["planted"],
+                               "--arcface_path", routes["rec"]))
+
+
+def test_onnx_detector_route_matches_jax(onnx_loaded):
+    """`--detector_path *.onnx` builds SCRFDOnnx at --det_size: its rows
+    on a letterboxed frame within 1e-5 of the JAX CLI's (its executor
+    eager) and the decoded detections equal."""
+    import jax
+    import jax.numpy as jnp
+
+    from ghost_tpu.models import scrfd as jscrfd
+    from ghost_tpu_torch.models import scrfd as tscrfd
+    from ghost_tpu_torch.models.scrfd_onnx import SCRFDOnnx
+
+    jpipe, tpipe = onnx_loaded
+    assert isinstance(tpipe.det_mod, SCRFDOnnx) and tpipe.det_mod.has_kps
+    assert tpipe.det_mod.input_size == jpipe.det_mod.input_size == 320
+    frames = np.random.default_rng(23).integers(0, 256, (1, *HW, 3),
+                                                dtype=np.uint8)
+    jcanvas, _ = jscrfd.preprocess_frames(jnp.asarray(frames), 320)
+    tcanvas, _ = tscrfd.preprocess_frames(torch.from_numpy(frames), 320)
+    jrows = jpipe.det_mod.apply(jpipe.det_vars, jcanvas)
+    trows = tpipe.det_mod(tcanvas)
+    for jr, tr in zip(jrows, trows):
+        for j, t in zip(jr, tr):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                       atol=1e-5)
+    cfg = tpipe.cfg
+    jdec = jax.jit(lambda r: jscrfd.decode_detections(
+        r, input_size=320, score_thresh=cfg.det_thresh,
+        max_faces=cfg.max_faces))(jrows)
+    tdec = tscrfd.decode_detections(trows, input_size=320,
+                                    score_thresh=cfg.det_thresh,
+                                    max_faces=cfg.max_faces)
+    assert float(tdec[0][0, 0]) > 0.5
+    for j, t in zip(jdec, tdec):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_onnx_arcface_route_matches_jax(onnx_loaded):
+    """`--arcface_path *.onnx` builds ArcFaceOnnx (whatever
+    --arcface_depth says): the pipeline's source embeddings within 1e-5
+    of the JAX CLI's."""
+    from ghost_tpu_torch.models.arcface_onnx import ArcFaceOnnx
+
+    jpipe, tpipe = onnx_loaded
+    assert isinstance(tpipe.arc_mod, ArcFaceOnnx)
+    crops = np.random.default_rng(24).integers(0, 256, (2, 224, 224, 3),
+                                               dtype=np.uint8)
+    ref = np.asarray(jpipe.embed_sources(crops))
+    got = tpipe.embed_sources(crops)
+    assert got.shape == (2, 512) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_mmdet_detector_route_matches_jax(files, routes, capsys):
+    """`--detector_path *.pth` builds SCRFDV1e (SCRFD-2.5GF) from the
+    mmdet names: the JAX CLI's variables through the bridge, tensor for
+    tensor, with its no-kps warning."""
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.scrfd_v1e import SCRFDV1e
+
+    jpipe, tpipe = _jax_and_port(_argv(files, "--detector_path",
+                                       routes["mmdet"]))
+    assert "SCRFD-2.5GF has no kps branch" in capsys.readouterr().out
+    assert isinstance(tpipe.det_mod, SCRFDV1e)
+    _assert_same_tensors(tpipe.det_mod, _bridged(
+        SCRFDV1e(policy=FULL_PRECISION), jpipe.det_vars))
+
+
+@pytest.mark.parametrize("route", ["onnx", "mmdet"])
+def test_route_image_run(files, routes, route, capsys):
+    """main on the image path through the routes: the emitted templated
+    SCRFD and the recognition graph (every face detected, a real blend,
+    no random detector or ArcFace), or the mmdet `.pth` (it completes and
+    warns that alignment has no keypoints)."""
+    out = str(files["dir"] / f"route_{route}.png")
+    det = routes["scrfd"] if route == "onnx" else routes["mmdet"]
+    tcli.main(_argv(files, "--image_to_image", "1", "--target_image",
+                    files["tgt"], "--out_image_name", out,
+                    "--detector_path", det, "--arcface_path", routes["rec"]),
+              device="cpu")
+    printed = capsys.readouterr().out
+    assert "Swapped Image saved" in printed
+    assert "random detector" not in printed and "random ArcFace" not in printed
+    written, target = read_image_rgb(out), read_image_rgb(files["tgt"])
+    assert written.shape == target.shape
+    if route == "onnx":
+        assert "no face found" not in printed
+        assert (written != target).mean() > 0.01
+    else:
+        assert "SCRFD-2.5GF has no kps branch" in printed
 
 
 # ------------------------------------------------------------------- card
