@@ -119,11 +119,31 @@ exits non-zero without its result lines:
               embedding can move), and with the detector route alone;
               and an image run with an mmdet `--detector_path *.pth`
               that completes with its no-kps warning
+ 19. enhance  the output enhancer (`--enhance_output face|full`,
+              `pipeline/enhance.py`) on phase 17's files and seeded
+              full-width GFPGANv1.4 / RealESRGAN_x4plus /
+              realesr-general-x4v3 `.pth` files with the reference's
+              names: (a) FaceEnhancer in f32 on one 240x320 frame (one
+              lane, 2x2 background tiles with a 10-px halo) on the card
+              against the same modules on the CPU, phase 4's frame bound,
+              for face, full + rrdb and full + srvgg (S2 on every SRVGG
+              conv); (b) the CLI's enhancer (bf16, the templated
+              pipeline's detector) on a chunk of 8 1080p frames per mode:
+              warm ms a chunk, frames/s, peak memory, lanes present, S2
+              launches (exactly 1088 with srvgg: 34 convs x 32 tiles of
+              270x240; 0 otherwise), and the RRDB background pass under
+              torch.profiler (cuDNN's share); (c) `main(argv)`: an image
+              with face, an image with full rrdb and a 20-frame stream
+              with full srvgg, each decoded back, frames/s end to end,
+              K1 as in phase 17, S2 1088 a chunk; then `run(args, pipe)`
+              equal to `enhance(swap_image_fused(...))` bit for bit
 
-Each path (5, 8, 9, 13, 14 and each CLI run of 17 and 18) runs with
-every launch count set to 0 just before it and read just after; the
-counts of 5, 8, 9 and 13 go into the kernels line as `launches`, those
-of 17 as `cli_launches`, those of 18 as `route_launches`.
+Each path (5, 8, 9, 13, 14, each CLI run of 17, 18 and 19, and each
+enhancer chunk of 19) runs with every launch count set to 0 just before
+it and read just after; the counts of 5, 8, 9 and 13 go into the
+kernels line as `launches`, those of 17 and 19's CLI runs as
+`cli_launches`, those of 18 as `route_launches`, those of 19's chunks
+as `enhance_launches`.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -153,6 +173,9 @@ K1_DTYPES = ("bfloat16", "float32", "float16")
 # inputs), NVIDIA H100 80GB HBM3 at 700.00 W
 K1_FIRST_DESIGN_PASS_MS = 3.689
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# torch.profiler sessions per measurement before a dropped session fails
+# the phase
+PROFILE_TRIES = 8
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same sheet
 F32_FLOPS = 67e12          # f32 outside the tensor cores, same sheet
 # K2 kernel-vs-plain cases: (B, H, S, D, dtype, causal, block_q, timed,
@@ -218,9 +241,17 @@ S2_CASES = [(8, 256, 256, 64, 64, "blk8"), (8, 128, 128, 128, 128, "blk7"),
             (16, 128, 128, 3, 32, "seat 3->32"),
             (16, 128, 128, 32, 32, "seat 32->32"),
             (16, 128, 128, 32, 12, "seat 32->12"),
-            (2, 37, 53, 5, 7, "odd")]
+            (2, 37, 53, 5, 7, "odd"),
+            # --bg_model srvgg: a chunk of 8 frames in 270x240 tiles with
+            # the 10-px halo, through SRVGG x4v3 (64 features, x4: 48 out)
+            (8, 290, 260, 3, 64, "srvgg 3->64"),
+            (8, 290, 260, 64, 64, "srvgg 64->64"),
+            (8, 290, 260, 64, 48, "srvgg 64->48")]
 # convs of each seat shape in one student pass (conv_0, 16 body, conv_last)
 S2_SEAT_PASS = {"seat 3->32": 1, "seat 32->32": 16, "seat 32->12": 1}
+# convs of each SRVGG x4v3 shape in one background tile (conv_0, 32 body,
+# conv_last): 34 launches
+S2_SRVGG_TILE = {"srvgg 3->64": 1, "srvgg 64->64": 32, "srvgg 64->48": 1}
 # a timed S2 case rotates through input sets of at least this many bytes
 S2_ROTATE_BYTES = 128 * 2 ** 20
 STUDENT = Path(__file__).resolve().parent / "assets" / \
@@ -246,6 +277,15 @@ CLI_RUNS = (("image", ("--image_to_image", "1")),
             ("stream_sr", ("--streaming", "1", "--use_sr", "1",
                            "--sr_model", "srvgg_student")))
 
+# the enhancer phase: the card-vs-CPU frame (f32) and its background
+# tiles (a 2x2 grid with a 10-px halo), the timed chunk of 1080p frames
+# (bf16) and its warm calls
+ENHANCE = dict(parity_hw=(240, 320), parity_tile=(120, 160), chunk=8,
+               iters=3)
+ENHANCE_FLAGS = {"face": ("--enhance_output", "face"),
+                 "rrdb": ("--enhance_output", "full", "--bg_model", "rrdb"),
+                 "srvgg": ("--enhance_output", "full", "--bg_model",
+                           "srvgg")}
 
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -1199,13 +1239,18 @@ def _device_times(fn, iters, device, kernels_per_call=None):
     """Each kernel's device us per call of fn, from torch.profiler over
     `iters` calls after a warm one: {kernel name: us}. With
     kernels_per_call, a session that recorded another number of kernels
-    (the profiler can drop events) is run again, up to three times."""
+    (the profiler can drop events, or a whole session's: seen on the
+    card's machine) is run again, up to PROFILE_TRIES times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(device)
-    for _ in range(3):
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            log(f"  (torch.profiler recorded {count} kernels in {iters} "
+                f"calls, {kernels_per_call} expected a call: again)")
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -1570,9 +1615,9 @@ def phase_train_parity(device):
 
 
 def phase_s2(device, card):
-    """S2 against its plain version at the scripts' and the seat's
-    shapes; times beside F.conv2d and the bounds. The kernels line takes
-    one student pass (18 convs at 16 crops, bf16)."""
+    """S2 against its plain version at the scripts', the seat's and the
+    SRVGG background's shapes; times beside F.conv2d and the bounds. The
+    kernels line takes one student pass (18 convs at 16 crops, bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -1582,6 +1627,7 @@ def phase_s2(device, card):
     worst = 0.0
     seat = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
             "bytes_ms": 0.0, "ops_ms": 0.0}
+    tile = dict.fromkeys(seat, 0.0)
     log(f"S2 conv3x3 vs plain ({card}):")
     for b, h, w, cin, cout, tag in S2_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1664,21 +1710,24 @@ def phase_s2(device, card):
                 f"{plain_ms * 1e3:9.1f} us, F.conv2d {lib_ms * 1e3:8.1f} us "
                 f"(|d| vs plain {lib_err:.1e}), bound {bound_ms * 1e3:7.1f} "
                 f"us ({by}); {len(sets)} input sets{dx_txt}")
-            if dtype == torch.bfloat16 and tag in S2_SEAT_PASS:
-                n = S2_SEAT_PASS[tag]
-                seat["ms"] += n * kern_ms
-                seat["plain_ms"] += n * plain_ms
-                seat["library_ms"] += n * lib_ms
-                seat["bound_ms"] += n * bound_ms
-                seat["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
-                seat["ops_ms"] += n * flops / BF16_FLOPS * 1e3
+            for acc, counts in ((seat, S2_SEAT_PASS), (tile, S2_SRVGG_TILE)):
+                if dtype == torch.bfloat16 and tag in counts:
+                    n = counts[tag]
+                    acc["ms"] += n * kern_ms
+                    acc["plain_ms"] += n * plain_ms
+                    acc["library_ms"] += n * lib_ms
+                    acc["bound_ms"] += n * bound_ms
+                    acc["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
+                    acc["ops_ms"] += n * flops / BF16_FLOPS * 1e3
             del sets, lib_sets, lib, y, ref, err, bound
             torch.cuda.empty_cache()
-    by = "bytes" if seat["bytes_ms"] >= seat["ops_ms"] else "operations"
-    log(f"S2 per student pass (18 convs, 16 crops of 128x128, bf16): kernel "
-        f"{seat['ms']:.3f} ms, plain {seat['plain_ms']:.3f} ms, F.conv2d "
-        f"{seat['library_ms']:.3f} ms, bound {seat['bound_ms']:.3f} ms "
-        f"({by}) ({card})")
+    for acc, what in ((tile, "srvgg background tile (34 convs, 8 frames "
+                              "of 290x260"),
+                      (seat, "student pass (18 convs, 16 crops of 128x128")):
+        by = "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations"
+        log(f"S2 per {what}, bf16): kernel {acc['ms']:.3f} ms, plain "
+            f"{acc['plain_ms']:.3f} ms, F.conv2d {acc['library_ms']:.3f} ms, "
+            f"bound {acc['bound_ms']:.3f} ms ({by}) ({card})")
     return dict(max_abs_err=worst, ms=seat["ms"], plain_ms=seat["plain_ms"],
                 bound_ms=seat["bound_ms"], bound_by=by,
                 library_ms=seat["library_ms"],
@@ -2674,6 +2723,320 @@ def phase_routes(card, f):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The output enhancer (phase 19)
+# ---------------------------------------------------------------------------
+
+
+def enhance_files(d):
+    """Seeded full-width enhancer checkpoints with the reference's names
+    in directory d: GFPGANv1.4.pth (toRGB.* and style_mlp.* included) and
+    RealESRGAN_x4plus.pth under params_ema, realesr-general-x4v3.pth under
+    params, as the real files nest them. Returns their paths."""
+    import numpy as np
+
+    inputs = _test_inputs("torch_cli_inputs")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    ef = {"gfpgan": f"{d}/GFPGANv1.4.pth", "rrdb": f"{d}/RealESRGAN_x4plus.pth",
+          "srvgg": f"{d}/realesr-general-x4v3.pth"}
+    inputs.save_pth(ef["gfpgan"], inputs.gfpgan_state_dict(rng), "params_ema")
+    inputs.save_pth(ef["rrdb"], inputs.rrdb_state_dict(rng), "params_ema")
+    inputs.save_pth(ef["srvgg"], inputs.srvgg_state_dict(rng), "params")
+    mib = sum(Path(p).stat().st_size for p in ef.values()) / 2 ** 20
+    log(f"enhance: wrote the GFPGAN, RRDB and SRVGG .pth files ({mib:.0f} "
+        f"MiB) in {time.perf_counter() - t0:.1f} s")
+    return ef
+
+
+def _enhance_argv(f, ef, mode):
+    bg = "srvgg" if mode == "srvgg" else "rrdb"
+    return _cli_base(f) + ["--gfpgan_path", ef["gfpgan"],
+                           "--bg_upsampler_path", ef[bg],
+                           *ENHANCE_FLAGS[mode]]
+
+
+def _s2_per_call(enh, hw):
+    """S2's launches in one `enh.enhance` call on frames of `hw`: every
+    conv of an SRVGG background (num_conv + 2) once per tile; 34 x 32 =
+    1088 for realesr-general-x4v3 on 1080p in 270x240 tiles."""
+    from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
+    from ghost_tpu_torch.pipeline.enhance import _fit_tile
+
+    if not isinstance(enh.bg_mod, SRVGGNetCompact):
+        return 0
+    th, tw = _fit_tile(enh.bg_tile, *hw)
+    return (enh.bg_mod.num_conv + 2) * (hw[0] // th) * (hw[1] // tw)
+
+
+def _lanes_present(enh, frames):
+    """The face lanes of `enh` present in at least one of `frames`."""
+    import torch
+
+    from ghost_tpu_torch.models.scrfd import (decode_detections,
+                                              preprocess_frames)
+
+    with torch.inference_mode():
+        canvas, _ = preprocess_frames(
+            torch.from_numpy(frames).to(enh.device), enh.det_size)
+        scores = decode_detections(
+            enh.det_mod(canvas), input_size=enh.det_size,
+            score_thresh=enh.det_thresh, max_faces=enh.max_faces)[0]
+    return int((scores > 0).any(dim=0).sum())
+
+
+def phase_enhance(card, f, cli):
+    """The enhancer post-pass (`--enhance_output face|full`) on phase 17's
+    files and seeded full-width GFPGANClean, RRDBNet x4plus and SRVGG
+    x4v3 checkpoints: (a) card against CPU in f32, (b) a chunk of 8
+    1080p frames in bf16, timed, (c) the CLI. Returns the launches of the
+    chunk runs and of the CLI runs."""
+    ef = enhance_files(f["dir"])
+    _enhance_parity(card, f, ef)
+    chunk = _enhance_chunk(card, f, ef)
+    return chunk, _enhance_cli(card, f, ef, cli, chunk["srvgg"]["conv3x3"])
+
+
+def _enhance_parity(card, f, ef):
+    """FaceEnhancer with the full-width models on one frame of
+    ENHANCE["parity_hw"] (the target png's corner; one face lane, 2x2
+    background tiles with a 10-px halo), f32, on the card against the
+    same modules on this machine's CPU: phase 4's frame bound (<= 3 grey
+    levels, < 5% of values differing). S2 runs every SRVGG conv on the
+    card: 34 a tile."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.torch_loader import (
+        convert_gfpgan_state_dict, convert_rrdbnet_state_dict,
+        convert_srvgg_state_dict, load_torch_checkpoint)
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.scrfd import SCRFD
+    from ghost_tpu_torch.models.sr.gfpgan import (GFPGANClean,
+                                                  drop_unread_leaves)
+    from ghost_tpu_torch.models.sr.rrdb import RRDBNet
+    from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
+    from ghost_tpu_torch.nn.layers import init_weights
+    from ghost_tpu_torch.pipeline.enhance import FaceEnhancer
+    from ghost_tpu_torch.pipeline.image import read_image_rgb
+    from ghost_tpu_torch.utils.face_template import inject_detection_template
+
+    p = FULL_PRECISION
+    gfp = GFPGANClean(policy=p)
+    gfp_vars, dropped = drop_unread_leaves(convert_gfpgan_state_dict(
+        load_torch_checkpoint(ef["gfpgan"])), gfp)
+    load_flax_variables(gfp, gfp_vars)
+    bgs = {"rrdb": load_flax_variables(RRDBNet(policy=p),
+                                       convert_rrdbnet_state_dict(
+                                           load_torch_checkpoint(ef["rrdb"]))),
+           "srvgg": load_flax_variables(SRVGGNetCompact(policy=p),
+                                        convert_srvgg_state_dict(
+                                            load_torch_checkpoint(
+                                                ef["srvgg"])))}
+    det = inject_detection_template(init_weights(
+        SCRFD(policy=p), torch.Generator().manual_seed(0)))
+    cpu = {"det": det.eval(), "gfp": gfp.eval(),
+           **{k: m.eval() for k, m in bgs.items()}}
+    on_card = {k: copy.deepcopy(m).cuda() for k, m in cpu.items()}
+    h, w = ENHANCE["parity_hw"]
+    frame = np.ascontiguousarray(read_image_rgb(f["tgt"])[None, :h, :w])
+    log(f"enhance (a): GFPGANClean {sum(x.numel() for x in gfp.parameters()) / 1e6:.1f} "
+        f"M params (dropped {len(dropped)} unread leaves: toRGB_*, mlp_*), "
+        f"RRDBNet {sum(x.numel() for x in bgs['rrdb'].parameters()) / 1e6:.1f} M, "
+        f"SRVGG {sum(x.numel() for x in bgs['srvgg'].parameters()) / 1e6:.2f} M; "
+        f"f32, one {h}x{w} frame, {torch.get_num_threads()} CPU threads")
+    for mode in ("face", "rrdb", "srvgg"):
+        kw = dict(max_faces=1, bg_tile=ENHANCE["parity_tile"])
+        bg = None if mode == "face" else mode
+        t0 = time.perf_counter()
+        ref = FaceEnhancer(cpu["det"], cpu["gfp"], bg and cpu[bg],
+                           **kw).enhance(frame)
+        cpu_s = time.perf_counter() - t0
+        enh = FaceEnhancer(on_card["det"], on_card["gfp"],
+                           bg and on_card[bg], **kw)
+        zero_counts()
+        t0 = time.perf_counter()
+        got = enh.enhance(frame)
+        card_s = time.perf_counter() - t0
+        s2 = read_counts()["conv3x3"]
+        diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        log(f"enhance (a) {mode}: card vs CPU max {int(diff.max())} grey "
+            f"levels, {(diff > 0).mean():.4%} of values differ (bound: <= 3 "
+            f"on < 5%); CPU {cpu_s:.2f} s, card {card_s:.2f} s (first "
+            f"call); {(ref != frame).mean():.2%} of the frame changed; S2 "
+            f"launches {s2} ({card})")
+        want_s2 = _s2_per_call(enh, (h, w))
+        if not (diff.max() <= 3 and (diff > 0).mean() < 0.05
+                and (ref != frame).mean() > 0.01 and s2 == want_s2):
+            raise AssertionError(f"enhance (a) {mode}: card vs CPU, or S2 "
+                                 f"launches {s2} (want {want_s2})")
+    del on_card
+    torch.cuda.empty_cache()
+
+
+def _enhance_chunk(card, f, ef):
+    """`FaceEnhancer.enhance` as the CLI builds it (bf16, the templated
+    pipeline's detector) on a chunk of 8 seeded 1080p frames (phase 17's
+    clip) per mode: warm ms a chunk (median of ENHANCE["iters"] synced
+    calls, numpy in and out), frames/s, peak memory, lanes present and S2
+    launches (1088 with srvgg, 0 otherwise: `_s2_per_call`); the RRDB
+    background pass once under torch.profiler (cuDNN's share of its
+    device time). Returns each mode's launches."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.cli import inference
+    from ghost_tpu_torch.pipeline.video import read_video
+
+    frames = read_video(f["mp4"])[0][:ENHANCE["chunk"]]
+    n = frames.shape[0]
+    args = inference.build_parser().parse_args(_enhance_argv(f, ef, "face"))
+    with _templated_cli() as load:
+        pipe = load(args)
+    launches = {}
+    for mode in ENHANCE_FLAGS:
+        args = inference.build_parser().parse_args(_enhance_argv(f, ef, mode))
+        load_s, _, enh = _cli_call(lambda: inference.build_enhancer(args,
+                                                                    pipe))
+        enh.enhance(frames)  # warm
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out = enh.enhance(frames)
+        launches[mode] = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ts = []
+        for _ in range(ENHANCE["iters"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enh.enhance(frames)
+            ts.append(time.perf_counter() - t0)
+        ms = sorted(ts)[len(ts) // 2] * 1e3
+        lanes = _lanes_present(enh, frames)
+        s2 = launches[mode]["conv3x3"]
+        log(f"enhance (b) {mode}: {ms:.1f} ms a chunk of {n} "
+            f"{frames.shape[1]}x{frames.shape[2]} (median of "
+            f"{len(ts)}: {', '.join(f'{t * 1e3:.1f}' for t in ts)}), "
+            f"{n / ms * 1e3:.2f} frames/s; peak memory {peak:.2f} GiB; "
+            f"{lanes} of {enh.max_faces} lanes present; S2 launches {s2}; "
+            f"build_enhancer {load_s:.2f} s ({card})")
+        want_s2 = _s2_per_call(enh, frames.shape[1:3])
+        if out.shape != frames.shape or out.dtype != np.uint8 \
+                or not (out != frames).mean() > 0.01 or s2 != want_s2 \
+                or lanes < 1:
+            raise AssertionError(f"enhance (b) {mode}: {out.shape} "
+                                 f"{out.dtype}, S2 {s2} (want {want_s2}), "
+                                 f"{lanes} lanes")
+        if mode == "rrdb":
+            _enhance_bg_profile(card, enh, frames)
+    return launches
+
+
+def _enhance_bg_profile(card, enh, frames):
+    """The RRDB background pass of one chunk under torch.profiler: device
+    busy time, cuDNN's convolutions' share of it, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(frames).cuda()
+    with torch.inference_mode():
+        enh._bg_base(x)
+        torch.cuda.synchronize()
+        for _ in range(PROFILE_TRIES):  # a session can come back empty
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                enh._bg_base(x)
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            kernels = [e for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(_dev_us(e) for e in kernels)
+            if busy > 0:
+                break
+    conv = sum(getattr(e, "device_time_total", 0) or
+               getattr(e, "cuda_time_total", 0) for e in events
+               if e.key == "aten::cudnn_convolution")
+    log(f"enhance (b) rrdb background pass (profiled): device busy "
+        f"{busy / 1e3:.1f} ms, aten::cudnn_convolution {conv / 1e3:.1f} ms "
+        f"({conv / max(busy, 1e-9):.1%} of it) ({card})")
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:8]:
+        log(f"  {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    if not busy > 0:
+        raise AssertionError("enhance: the profiler saw no device time")
+
+
+def _enhance_cli(card, f, ef, cli, s2_chunk):
+    """`main(argv)` with the enhancer: an image with face, an image with
+    full rrdb, a 20-frame stream with full srvgg; each decoded back,
+    K1 launched as in phase 17's run of the same path, S2 exactly
+    s2_chunk (phase (b)'s 1080p chunk: 1088) a chunk with srvgg; then
+    `run(args, pipe)` must write `enhance(swap_image_fused(...))` bit for
+    bit. Returns the launches of each run."""
+    import numpy as np
+
+    from ghost_tpu_torch.cli import inference
+    from ghost_tpu_torch.pipeline.image import read_image_rgb
+    from ghost_tpu_torch.pipeline.video import read_video
+
+    d = f["dir"]
+    target = read_image_rgb(f["tgt"])
+    chunks = -(-CLI["frames"] // CLI["batch"])
+    launches = {}
+    for name, mode, path, n in (
+            ("enhance_image_face", "face", "image", 1),
+            ("enhance_image_rrdb", "rrdb", "image", 1),
+            ("enhance_stream_srvgg", "srvgg", "stream", CLI["frames"])):
+        out = f"{d}/{name}." + ("png" if path == "image" else "mp4")
+        io_args = (["--image_to_image", "1", "--target_image", f["tgt"],
+                    "--out_image_name", out] if path == "image" else
+                   ["--streaming", "1", "--target_video", f["mp4"],
+                    "--out_video_name", out])
+        argv = _enhance_argv(f, ef, mode) + io_args
+        zero_counts()
+        with _templated_cli():
+            wall, lines, _ = _cli_call(lambda: inference.main(argv))
+        launches[name] = counts = read_counts()
+        for line in lines:
+            log(f"  {name} | {line}")
+        got = read_image_rgb(out) if path == "image" else read_video(out)[0]
+        want = (target.shape if path == "image"
+                else (CLI["frames"], *CLI["hw"], 3))
+        k1, s2 = counts["aad_modulate"], counts["conv3x3"]
+        want_s2 = s2_chunk * chunks if mode == "srvgg" else 0
+        log(f"cli {name}: main() {wall:.2f} s wall, {n / wall:.2f} frames/s "
+            f"end to end; K1 launches {k1} (phase 17's {path} run: "
+            f"{cli[path]['aad_modulate']}), S2 {s2} (want {want_s2}); "
+            f"decoded {tuple(got.shape)} ({card})")
+        if tuple(got.shape) != tuple(want) or s2 != want_s2 \
+                or k1 != cli[path]["aad_modulate"] \
+                or any("random GFPGAN" in ln or "random rrdb" in ln
+                       or "random srvgg" in ln for ln in lines):
+            raise AssertionError(f"cli {name}: {tuple(got.shape)}, K1 {k1}, "
+                                 f"S2 {s2}")
+
+    # the split-off run writes the post-pass of swap_image_fused
+    out = f"{d}/enhance_run.png"
+    args = inference.build_parser().parse_args(
+        _enhance_argv(f, ef, "face") + ["--image_to_image", "1",
+                                        "--target_image", f["tgt"],
+                                        "--out_image_name", out])
+    with _templated_cli() as load:
+        pipe = load(args)
+    _cli_call(lambda: inference.run(args, pipe))
+    written = read_image_rgb(out)
+    sources = inference.crop_or_center(pipe, f["src"])[None]
+    swapped = pipe.swap_image_fused(target, sources)
+    ref = inference.build_enhancer(args, pipe).enhance(swapped[None])[0]
+    log(f"cli run(args, pipe) --enhance_output face: equal to "
+        f"enhance(swap_image_fused): {np.array_equal(written, ref)}; "
+        f"{float((written != swapped).mean()):.2%} of the swapped image "
+        f"changed by the post-pass ({card})")
+    if not np.array_equal(written, ref) or not (written != swapped).any():
+        raise AssertionError("cli: run(args, pipe) with the enhancer differs "
+                             "from enhance(swap_image_fused)")
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -2711,6 +3074,8 @@ def main(argv):
         files = cli_files(d)
         cli = phase_cli(card, files)
         routes = phase_routes(card, files)
+        enhance, enhance_cli = phase_enhance(card, files, cli)
+        cli.update(enhance_cli)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2724,10 +3089,12 @@ def main(argv):
                         # the CUDA-event times of back-to-back calls
                         **{k: st[k] for k in ("call_ms", "library_call_ms")
                            if k in st},
-                        # the launches of each CLI run (phases 17, 18)
+                        # the launches of each CLI run (phases 17-19) and
+                        # of the enhancer's chunk runs (phase 19)
                         **{key: {run: c[name] for run, c in runs.items()}
                            for key, runs in (("cli_launches", cli),
-                                             ("route_launches", routes))
+                                             ("route_launches", routes),
+                                             ("enhance_launches", enhance))
                            if any(c[name] for c in runs.values())}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

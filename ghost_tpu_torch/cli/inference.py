@@ -21,10 +21,14 @@ The reference's own packs load as in the JAX CLI: an `.onnx`
 (model_25GF.pth) as `models/scrfd_v1e.py:SCRFDV1e` through
 `convert_scrfd_state_dict`.
 
+`--enhance_output face|full` runs the enhancer post-pass
+(`pipeline/enhance.py`: GFPGANv1Clean on every detected face, with
+`full` over a tiled x4 background, `--bg_model rrdb` RealESRGAN_x4plus or
+`srvgg` realesr-general-x4v3) on the pipeline's detector, as the JAX CLI
+does.
+
 `main(argv, device="cpu")` runs on the CPU (tests); the command line
-always runs on the card and raises without one. `--enhance_output
-face|full` (the GFPGAN / Real-ESRGAN enhancer, not ported yet) raises
-SystemExit before any weight is read.
+always runs on the card and raises without one.
 """
 
 from __future__ import annotations
@@ -96,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "face", "full"],
                    help="post-enhance outputs: 'face' = GFPGAN restore "
                         "on detected faces, 'full' = + Real-ESRGAN "
-                        "background (not ported yet: raises)")
+                        "background (reference upsample(), "
+                        "utils/training/upsampler.py:92-106)")
     p.add_argument("--gfpgan_path", default="",
                    help="GFPGANv1Clean weights (.pth)")
     p.add_argument("--bg_upsampler_path", default="",
@@ -104,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bg_model", default="rrdb", choices=["rrdb", "srvgg"],
                    help="background upsampler family: rrdb = "
                         "RealESRGAN_x4plus (the reference's "
-                        "get_bg_upsampler), srvgg = realesr-general-x4v3")
+                        "get_bg_upsampler), srvgg = realesr-general-x4v3 "
+                        "(the fast model its Dockerfile also ships)")
     return p
 
 
@@ -119,14 +125,68 @@ def bundled_student_ckpt() -> str | None:
     return path if os.path.exists(path) else None
 
 
-def _refuse_unported(args) -> None:
-    """SystemExit for each route whose model the port does not have yet,
-    naming the JAX module it waits for."""
-    if args.enhance_output != "none":
-        raise SystemExit(
-            f"--enhance_output {args.enhance_output}: the enhancer "
-            "(ghost_tpu/pipeline/enhance.py, GFPGAN and RRDB/SRVGG "
-            "background) is not ported to ghost_tpu_torch yet")
+def _seeded(model):
+    """`init_weights` on a torch.Generator seeded with 0 (a model with no
+    checkpoint; not the JAX CLI's `jax.random.key(0)` values)."""
+    from ghost_tpu_torch.nn.layers import init_weights
+
+    return init_weights(model, torch.Generator().manual_seed(0))
+
+
+def build_enhancer(args, pipe):
+    """The optional GFPGAN (+ background) post-pass sharing the
+    pipeline's detector, on the pipeline's device; None for
+    `--enhance_output none`.
+
+    A converted GFPGANv1.4 tree carries `toRGB_*` and style-MLP leaves
+    that the serving module does not read; `drop_unread_leaves` removes
+    them (and only them) before the strict bridge."""
+    if args.enhance_output == "none":
+        return None
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.torch_loader import (
+        convert_gfpgan_state_dict, convert_rrdbnet_state_dict,
+        convert_srvgg_state_dict, load_torch_checkpoint)
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from ghost_tpu_torch.models.sr.gfpgan import (GFPGANClean,
+                                                  drop_unread_leaves)
+    from ghost_tpu_torch.models.sr.rrdb import RRDBNet
+    from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
+    from ghost_tpu_torch.nn.layers import cast_to_compute_dtype
+    from ghost_tpu_torch.pipeline.enhance import FaceEnhancer
+
+    policy = DEFAULT_POLICY if args.bf16 else FULL_PRECISION
+    gfp = GFPGANClean(policy=policy)
+    if os.path.exists(args.gfpgan_path):
+        gfp_vars, _ = drop_unread_leaves(convert_gfpgan_state_dict(
+            load_torch_checkpoint(args.gfpgan_path)), gfp)
+        load_flax_variables(gfp, gfp_vars)
+    elif args.allow_random_weights:
+        print("WARNING: random GFPGAN weights (--gfpgan_path not given)")
+        _seeded(gfp)
+    else:
+        raise SystemExit(f"missing --gfpgan_path {args.gfpgan_path!r}")
+    bg = None
+    if args.enhance_output == "full":
+        if args.bg_model == "srvgg":
+            convert_bg = convert_srvgg_state_dict
+            bg = SRVGGNetCompact(policy=policy)
+        else:
+            convert_bg = convert_rrdbnet_state_dict
+            bg = RRDBNet(policy=policy)
+        if os.path.exists(args.bg_upsampler_path):
+            load_flax_variables(bg, convert_bg(
+                load_torch_checkpoint(args.bg_upsampler_path)))
+        elif args.allow_random_weights:
+            print(f"WARNING: random {args.bg_model} weights "
+                  "(--bg_upsampler_path not given)")
+            _seeded(bg)
+        else:
+            raise SystemExit(
+                f"missing --bg_upsampler_path {args.bg_upsampler_path!r}")
+        bg = cast_to_compute_dtype(bg.to(pipe.device).eval())
+    gfp = cast_to_compute_dtype(gfp.to(pipe.device).eval())
+    return FaceEnhancer(pipe.det_mod, gfp, bg, det_size=args.det_size)
 
 
 def load_pipeline(args, device="cuda"):
@@ -154,7 +214,7 @@ def load_pipeline(args, device="cuda"):
     from ghost_tpu_torch.models.scrfd import SCRFD
     from ghost_tpu_torch.models.scrfd_onnx import SCRFDOnnx
     from ghost_tpu_torch.models.scrfd_v1e import SCRFDV1e
-    from ghost_tpu_torch.nn.layers import cast_to_compute_dtype, init_weights
+    from ghost_tpu_torch.nn.layers import cast_to_compute_dtype
     from ghost_tpu_torch.pipeline.swap import SwapConfig, SwapPipeline
 
     device = torch.device(device)
@@ -163,10 +223,6 @@ def load_pipeline(args, device="cuda"):
             raise RuntimeError("load_pipeline: no CUDA card; pass "
                                "device='cpu' to run on the CPU")
         disable_tf32()
-    _refuse_unported(args)
-
-    def seeded(model):
-        return init_weights(model, torch.Generator().manual_seed(0))
 
     policy = DEFAULT_POLICY if args.bf16 else FULL_PRECISION
     cfg = SwapConfig(
@@ -185,7 +241,7 @@ def load_pipeline(args, device="cuda"):
             num_blocks=args.num_blocks))
     elif args.allow_random_weights:
         print("WARNING: random generator weights")
-        seeded(gen)
+        _seeded(gen)
     else:
         raise SystemExit(f"missing --G_path {args.G_path!r} "
                          "(pass --allow_random_weights 1 for a smoke run)")
@@ -206,7 +262,7 @@ def load_pipeline(args, device="cuda"):
                 load_torch_checkpoint(args.arcface_path), layers=arc_layers))
         elif args.allow_random_weights:
             print("WARNING: random ArcFace weights")
-            seeded(arc)
+            _seeded(arc)
         else:
             raise SystemExit(f"missing --arcface_path {args.arcface_path!r}")
 
@@ -232,14 +288,14 @@ def load_pipeline(args, device="cuda"):
         if args.detector_path:
             load_flax_variables(det, load_msgpack(args.detector_path))
         else:
-            seeded(det)
+            _seeded(det)
             print("WARNING: random detector weights "
                   "(--detector_path not given)")
     lmk = Landmark106(policy=policy)
     if args.landmark_path:
         load_flax_variables(lmk, load_msgpack(args.landmark_path))
     else:
-        seeded(lmk)
+        _seeded(lmk)
         print("WARNING: random landmark weights (--landmark_path not given)")
 
     sr = None
@@ -257,8 +313,8 @@ def load_pipeline(args, device="cuda"):
                 student = load_flax_variables(
                     srvgg_from_variables(sr_vars, policy=policy), sr_vars)
             else:
-                student = seeded(SRVGGNetCompact(num_feat=32, num_conv=16,
-                                                 upscale=2, policy=policy))
+                student = _seeded(SRVGGNetCompact(num_feat=32, num_conv=16,
+                                                  upscale=2, policy=policy))
                 print("WARNING: random SR-student weights "
                       "(--sr_path not given, no bundled checkpoint)")
             sr = SRVGGStudentSeat(student)
@@ -269,7 +325,7 @@ def load_pipeline(args, device="cuda"):
             if args.sr_path:
                 load_flax_variables(sr, load_msgpack(args.sr_path))
             else:
-                seeded(sr)
+                _seeded(sr)
                 print("WARNING: random SR weights (--sr_path not given)")
         sr = cast_to_compute_dtype(sr.to(device).eval())
 
@@ -302,14 +358,18 @@ def crop_or_center(pipe, path: str) -> np.ndarray:
 
 
 def run(args, pipe) -> None:
-    """The CLI's work on a loaded pipeline: source (and target) crops,
-    then the image or video swap, written to the output file."""
+    """The CLI's work on a loaded pipeline: the enhancer of
+    `--enhance_output` (`build_enhancer`), source (and target) crops,
+    then the image or video swap and the enhancer's post-pass, written
+    to the output file."""
     from ghost_tpu_torch.pipeline.image import read_image_rgb, write_image_rgb
     from ghost_tpu_torch.pipeline.video import (VideoChunkWriter,
                                                 add_audio_from_video,
                                                 read_video, video_fps,
                                                 write_video)
 
+    enh = build_enhancer(args, pipe)
+    post = enh.enhance if enh is not None else (lambda fr: fr)
     print("List of source paths:", args.source_paths)
     sources = np.stack([crop_or_center(pipe, p) for p in args.source_paths])
     targets = None
@@ -321,6 +381,7 @@ def run(args, pipe) -> None:
     if args.image_to_image:
         frame = read_image_rgb(args.target_image)
         result = pipe.swap_image_fused(frame, sources, targets)
+        result = post(result[None])[0]
         write_image_rgb(args.out_image_name, result)
         print(f"Swapped Image saved with path {args.out_image_name}")
     elif args.streaming:
@@ -335,7 +396,7 @@ def run(args, pipe) -> None:
         for out in pipe.swap_video_stream(
                 stream_video_chunks(args.target_video, pipe.cfg.chunk_size),
                 sources, targets, smooth=args.smooth):
-            writer.write(out)
+            writer.write(post(out))
             n_out += out.shape[0]
         writer.close()
         if n_out == 0:
@@ -347,6 +408,10 @@ def run(args, pipe) -> None:
         frames, fps = read_video(args.target_video)
         out = pipe.swap_video_frames(frames, sources, targets,
                                      smooth=args.smooth)
+        out = np.concatenate(
+            [post(out[i:i + pipe.cfg.chunk_size])
+             for i in range(0, out.shape[0], pipe.cfg.chunk_size)]) \
+            if enh is not None else out
         write_video(args.out_video_name, out, fps)
         if add_audio_from_video(args.target_video, args.out_video_name):
             print("audio remuxed")

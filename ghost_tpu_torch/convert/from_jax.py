@@ -25,6 +25,12 @@ levels that `ghost_tpu/nn/layers.py` adds (`Conv_0`, `Dense_0`,
   BatchNorm       with affine=False (SPADE's pfn): batch_stats only
   GroupNorm       scale/bias -> weight/bias
   SCRFDHeadShared scale{level}, bare params at the module's own level
+  ModulatedConv   weight HWIO (k,k,cin,cout) -> OIHW, transpose(3,2,0,1)
+  StyleConv       noise_weight (1,) and bias (cout,), bare params at the
+                  module's own level, as they are
+  ToRGB           bias (3,), a bare param, as it is
+  StyleGAN2CSFT   constant_input, a bare param kept in flax's NHWC
+                  layout (1,4,4,C) (the decoder runs NHWC)
 
 Collections read: params, batch_stats, spectral. The bridge is strict: every port tensor is filled exactly once and
 every flax leaf is used exactly once, or it raises.
@@ -40,6 +46,8 @@ from torch import nn
 
 from ghost_tpu_torch.models.scrfd_v1e import SCRFDHeadShared
 from ghost_tpu_torch.models.sr.generator import SimplifiedLIP
+from ghost_tpu_torch.models.sr.gfpgan import (ModulatedConv, StyleConv,
+                                              StyleGAN2CSFT, ToRGB)
 from ghost_tpu_torch.models.sr.spade import SpectralConv
 from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
 from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, Conv3x3, ConvTranspose,
@@ -73,9 +81,11 @@ _LEAF_MAP = {
     (SpectralConv, "bias"): ("bias", None),
     (SpectralConv, "u"): ("u", None),
     (SpectralConv, "v"): ("v", None),
+    (ModulatedConv, "weight"): ("weight", lambda v: v.transpose(3, 2, 0, 1)),
 }
 # modules whose own bare parameters are flax leaves of the same name
-_BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP, SCRFDHeadShared)
+_BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP, SCRFDHeadShared, StyleConv,
+                ToRGB, StyleGAN2CSFT)
 
 
 def _flatten(tree, prefix=()):

@@ -21,9 +21,12 @@ The port loads the tree with its strict bridge,
 `convert/from_jax.py:load_flax_variables`, which the parity tests hold
 against the JAX models; the converters themselves are pure numpy and do
 not depend on the model's width. `convert_scrfd_state_dict` reads the
-mmdet SCRFD checkpoints (`--detector_path *.pth`). The SRVGG `body.N`
-and SPADE routes of the JAX module move with their callers (the
-enhancer, `cli/convert.py`).
+mmdet SCRFD checkpoints (`--detector_path *.pth`). The enhancer's
+checkpoints (`--enhance_output face|full`) read through
+`convert_gfpgan_state_dict` (GFPGANv1.4.pth), `convert_rrdbnet_state_dict`
+(RealESRGAN_x4plus.pth) and `convert_srvgg_state_dict`
+(realesr-general-x4v3.pth). The SPADE route of the JAX module moves with
+its caller (`cli/convert.py`).
 """
 
 from __future__ import annotations
@@ -322,3 +325,147 @@ def convert_scrfd_state_dict(sd: Mapping[str, np.ndarray], arch=None):
     for lvl in range(n_levels):
         hp[f"scale{lvl}"] = sd[f"bbox_head.scales.{lvl}.scale"]
     return {"params": params, "batch_stats": stats}
+
+
+def _conv_wb(sd, name):
+    return {"Conv_0": {"kernel": _conv(sd, name),
+                       "bias": sd[f"{name}.bias"]}}
+
+
+def convert_rrdbnet_state_dict(
+    sd: Mapping[str, np.ndarray], num_block: int = 23
+):
+    """Real-ESRGAN RRDBNet checkpoints (RealESRGAN_x4plus.pth — the
+    reference's bg upsampler, utils/training/upsampler.py:32,61).
+    Official key layout: conv_first / body.N.rdbM.convK / conv_body /
+    conv_up1 / conv_up2 / conv_hr / conv_last; checkpoints wrap the
+    state dict under 'params_ema' or 'params'."""
+    for wrapper in ("params_ema", "params"):
+        if wrapper in sd and isinstance(sd[wrapper], dict):
+            sd = sd[wrapper]
+            break
+    params: Dict = {}
+    for top in ("conv_first", "conv_body", "conv_up1", "conv_up2",
+                "conv_hr", "conv_last"):
+        params[top] = _conv_wb(sd, top)
+    for i in range(num_block):
+        blk: Dict = {}
+        for m in range(1, 4):
+            rdb = {f"conv{k}": _conv_wb(sd, f"body.{i}.rdb{m}.conv{k}")
+                   for k in range(1, 6)}
+            blk[f"rdb{m}"] = rdb
+        params[f"body_{i}"] = blk
+    return {"params": params}
+
+
+def convert_srvgg_state_dict(sd: Mapping[str, np.ndarray],
+                             num_conv: int = 32):
+    """SRVGGNetCompact checkpoints (realesr-general-x4v3.pth — the
+    reference's fast general upsampler, Dockerfile:65-68,
+    utils/training/upsampler.py:6). Official layout: a flat
+    `body.{idx}` ModuleList alternating conv (even idx) and PReLU
+    (odd idx), final conv at index 2*(num_conv+1); wrapped under
+    'params' or 'params_ema'."""
+    for wrapper in ("params_ema", "params"):
+        if wrapper in sd and isinstance(sd[wrapper], dict):
+            sd = sd[wrapper]
+            break
+    params: Dict = {}
+    for i in range(num_conv + 1):
+        params[f"conv_{i}"] = _conv_wb(sd, f"body.{2 * i}")
+        params[f"prelu_{i}"] = sd[f"body.{2 * i + 1}.weight"]
+    params["conv_last"] = _conv_wb(sd, f"body.{2 * (num_conv + 1)}")
+    return {"params": params}
+
+
+def convert_gfpgan_state_dict(
+    sd: Mapping[str, np.ndarray],
+    out_size: int = 512,
+    num_style_feat: int = 512,
+):
+    """GFPGANv1Clean checkpoints (GFPGANv1.4.pth / v1.3 — the
+    reference's face enhancer, utils/training/upsampler.py:39-46).
+    Official key layout per the public gfpganv1_clean_arch module;
+    noise buffers (stylegan_decoder.noises.*) are dropped — serving
+    uses deterministic zero noise (models/sr/gfpgan.py)."""
+    import math
+
+    log_size = int(math.log2(out_size))
+    n_stages = log_size - 2
+
+    def resblock(prefix):
+        return {
+            "conv1": _conv_wb(sd, f"{prefix}.conv1"),
+            "conv2": _conv_wb(sd, f"{prefix}.conv2"),
+            "skip": {"Conv_0": {"kernel": _conv(sd, f"{prefix}.skip")}},
+        }
+
+    def modconv(prefix):
+        # torch weight (1, cout, cin, k, k) -> (k, k, cin, cout)
+        w = np.transpose(sd[f"{prefix}.weight"][0], (2, 3, 1, 0))
+        return {
+            "weight": w,
+            "modulation": {"Dense_0": {
+                "kernel": _linear_kernel(sd, f"{prefix}.modulation"),
+                "bias": sd[f"{prefix}.modulation.bias"],
+            }},
+        }
+
+    def styleconv(prefix):
+        return {
+            "modulated_conv": modconv(f"{prefix}.modulated_conv"),
+            "noise_weight": sd[f"{prefix}.weight"].reshape(1),
+            "bias": sd[f"{prefix}.bias"].reshape(-1),
+        }
+
+    def torgb(prefix):
+        return {
+            "modulated_conv": modconv(f"{prefix}.modulated_conv"),
+            "bias": sd[f"{prefix}.bias"].reshape(-1),
+        }
+
+    params: Dict = {"conv_body_first": _conv_wb(sd, "conv_body_first"),
+                    "final_conv": _conv_wb(sd, "final_conv")}
+    for i in range(n_stages):
+        params[f"conv_body_down_{i}"] = resblock(f"conv_body_down.{i}")
+        params[f"conv_body_up_{i}"] = resblock(f"conv_body_up.{i}")
+        for kind in ("scale", "shift"):
+            params[f"condition_{kind}_{i}_0"] = _conv_wb(
+                sd, f"condition_{kind}.{i}.0")
+            params[f"condition_{kind}_{i}_1"] = _conv_wb(
+                sd, f"condition_{kind}.{i}.2")
+        if f"toRGB.{i}.weight" in sd:
+            params[f"toRGB_{i}"] = _conv_wb(sd, f"toRGB.{i}")
+
+    # final_linear: torch flattens NCHW (c*16 + y*4 + x); our NHWC
+    # flatten is ((y*4 + x)*C + c) — permute the input axis to match
+    w = sd["final_linear.weight"]  # (out, C*16)
+    c4 = w.shape[1] // 16
+    w = (w.reshape(-1, c4, 4, 4).transpose(0, 2, 3, 1)
+         .reshape(-1, 16 * c4))
+    params["final_linear"] = {"Dense_0": {
+        "kernel": np.transpose(w, (1, 0)),
+        "bias": sd["final_linear.bias"],
+    }}
+
+    dec: Dict = {
+        "constant_input": np.transpose(
+            sd["stylegan_decoder.constant_input.weight"], (0, 2, 3, 1)),
+        "style_conv1": styleconv("stylegan_decoder.style_conv1"),
+        "to_rgb1": torgb("stylegan_decoder.to_rgb1"),
+    }
+    for j in range(2 * n_stages):
+        dec[f"style_convs_{j}"] = styleconv(
+            f"stylegan_decoder.style_convs.{j}")
+    for s in range(n_stages):
+        dec[f"to_rgbs_{s}"] = torgb(f"stylegan_decoder.to_rgbs.{s}")
+    for j in range(8):
+        k = f"stylegan_decoder.style_mlp.{2 * j}.weight"
+        if k in sd:
+            dec[f"mlp_{j}"] = {"Dense_0": {
+                "kernel": _linear_kernel(
+                    sd, f"stylegan_decoder.style_mlp.{2 * j}"),
+                "bias": sd[f"stylegan_decoder.style_mlp.{2 * j}.bias"],
+            }}
+    params["stylegan_decoder"] = dec
+    return {"params": params}

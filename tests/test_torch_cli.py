@@ -10,9 +10,14 @@ templates injected (so detections, the mask and the blend are real), and
 the bundled SRVGG student. Weights must be equal exactly: the port's
 loaded modules against the JAX CLI's variables passed through the bridge.
 The written image must equal `swap_image_fused` on the same pipeline bit
-for bit. The video runs take `--arcface_depth tiny` (which, as in the
-JAX CLI, ignores `--arcface_path` and needs `--allow_random_weights`):
-iresnet34 embeds 8 crops a frame, ~0.6 s of CPU each frame.
+for bit. The enhancer's routes (`--enhance_output face`, `full
+--bg_model srvgg`) run narrow GFPGAN and SRVGG `.pth` files written from
+the torch replicas of `tests/test_enhancers.py`, both CLIs' full-width
+classes monkeypatched to narrow ones, and are held to the JAX CLI's
+`main` body on the same files (its `load_pipeline` returning the JAX
+pipeline of `loaded`). The video runs take `--arcface_depth tiny` (which, as in the JAX CLI, ignores `--arcface_path` and needs
+`--allow_random_weights`): iresnet34 embeds 8 crops a frame, ~0.6 s of
+CPU each frame.
 
 JAX is imported inside the tests that use it, so the card tests run
 where jax is not installed:
@@ -96,6 +101,15 @@ def loaded(files):
     jpipe = jcli.load_pipeline(jcli.build_parser().parse_args(argv))
     tpipe = tcli.load_pipeline(tcli.build_parser().parse_args(argv), "cpu")
     return jpipe, tpipe
+
+
+@pytest.fixture(scope="module")
+def swapped(files, loaded):
+    """The port's `swap_image_fused` of the target image on `loaded`,
+    with the sources as the CLI crops them."""
+    _, tpipe = loaded
+    sources = tcli.crop_or_center(tpipe, files["src"])[None]
+    return tpipe.swap_image_fused(read_image_rgb(files["tgt"]), sources)
 
 
 # ------------------------------------------------------------------ parser
@@ -207,7 +221,7 @@ def test_load_pipeline_weights_match_jax(loaded):
 
 
 # --------------------------------------------------------------- CLI runs
-def test_image_run_writes_swap_image_fused(files, loaded, capsys):
+def test_image_run_writes_swap_image_fused(files, swapped, capsys):
     """main on the image path writes the target's shape; the png equals
     swap_image_fused on the same pipeline bit for bit, and the blend is
     real."""
@@ -217,10 +231,7 @@ def test_image_run_writes_swap_image_fused(files, loaded, capsys):
     assert "Swapped Image saved" in capsys.readouterr().out
     written, target = read_image_rgb(out), read_image_rgb(files["tgt"])
     assert written.shape == target.shape
-    _, tpipe = loaded
-    sources = tcli.crop_or_center(tpipe, files["src"])[None]
-    np.testing.assert_array_equal(written,
-                                  tpipe.swap_image_fused(target, sources))
+    np.testing.assert_array_equal(written, swapped)
     assert (written != target).mean() > 0.01
 
 
@@ -252,17 +263,172 @@ def test_main_needs_a_card_by_default(files):
                         files["tgt"]))
 
 
-@pytest.mark.parametrize("extra,waits_for", [
-    (["--enhance_output", "face"], "ghost_tpu/pipeline/enhance.py"),
-    (["--enhance_output", "full"], "ghost_tpu/pipeline/enhance.py"),
-])
-def test_unported_routes_raise_before_loading(extra, waits_for):
-    """Each route whose model is not ported raises SystemExit naming the
-    JAX module it waits for, before any weight is read (the G path does
-    not exist and no random weights are allowed)."""
-    argv = ["--G_path", "missing.pth", "--source_paths", "a.png", *extra]
-    with pytest.raises(SystemExit, match=waits_for):
-        tcli.main(argv, device="cpu")
+# ----------------------------------------------------------- the enhancer
+# the narrow enhancer both CLIs build in these tests (their classes and
+# their converters' defaults are full width), at a crop of 64 and with
+# 80x112 background tiles (a 2x2 grid with a 10-px halo on 160x224)
+NARROW_GFPGAN = dict(out_size=64, num_style_feat=32, channel_multiplier=2,
+                     num_mlp=2, narrow=0.25)
+NARROW_SRVGG = dict(num_feat=8, num_conv=2)
+ENHANCE_ROUTES = {
+    "face": ("--enhance_output", "face"),
+    "full_srvgg": ("--enhance_output", "full", "--bg_model", "srvgg"),
+}
+
+
+@pytest.fixture(scope="module")
+def enhancer_files(files):
+    """GFPGANv1Clean and SRVGG `.pth` files written from the torch
+    replicas of `tests/test_enhancers.py` (the official names; GFPGAN's
+    toRGB.* and style_mlp.* included), nested under params_ema as the
+    real files are."""
+    from tests.test_enhancers import TGFPGANv1Clean, TorchSRVGG
+
+    d = files["dir"]
+    paths = {"gfpgan": str(d / "GFPGANv1.4.pth"),
+             "srvgg": str(d / "realesr-general-x4v3.pth")}
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        for key, tm in (("gfpgan", TGFPGANv1Clean(64, 32, 2, 2, 0.25)),
+                        ("srvgg", TorchSRVGG(3, 3, 8, 2, 4))):
+            with torch.no_grad():
+                for prm in tm.parameters():
+                    prm.add_(0.05 * torch.randn_like(prm))
+            save_pth(paths[key], {k: v.numpy() for k, v in
+                                  tm.state_dict().items()}, "params_ema")
+    return paths
+
+
+@pytest.fixture
+def narrow_enhancer(monkeypatch):
+    """Narrow GFPGANClean and SRVGGNetCompact, their converters' defaults
+    and the enhancer's crop in both packages."""
+    import functools
+
+    import ghost_tpu.convert.torch_loader as jload
+    import ghost_tpu.models.sr.gfpgan as jgfp
+    import ghost_tpu.models.sr.srvgg as jsrvgg
+    import ghost_tpu.pipeline.enhance as jenh
+    import ghost_tpu_torch.convert.torch_loader as tload
+    import ghost_tpu_torch.models.sr.gfpgan as tgfp
+    import ghost_tpu_torch.models.sr.srvgg as tsrvgg
+    import ghost_tpu_torch.pipeline.enhance as tenh
+
+    for gfp, srvgg, load, enh in ((jgfp, jsrvgg, jload, jenh),
+                                  (tgfp, tsrvgg, tload, tenh)):
+        for mod, name, kw in (
+                (gfp, "GFPGANClean", NARROW_GFPGAN),
+                (srvgg, "SRVGGNetCompact", NARROW_SRVGG),
+                (load, "convert_gfpgan_state_dict",
+                 dict(out_size=64, num_style_feat=32)),
+                (load, "convert_srvgg_state_dict", dict(num_conv=2)),
+                (enh, "FaceEnhancer", dict(crop_size=64,
+                                           bg_tile=(80, 112)))):
+            monkeypatch.setattr(mod, name, functools.partial(
+                getattr(mod, name), **kw))
+
+
+def _enhance_argv(files, enhancer_files, route, out):
+    return _argv(files, *SR, "--image_to_image", "1", "--target_image",
+                 files["tgt"], "--out_image_name", out,
+                 *ENHANCE_ROUTES[route], "--gfpgan_path",
+                 enhancer_files["gfpgan"], "--bg_upsampler_path",
+                 enhancer_files["srvgg"])
+
+
+def _jax_main(jpipe, argv, monkeypatch):
+    """The JAX CLI's `main` body on the `loaded` pipeline (its
+    `load_pipeline` returns it). What the JAX package runs eagerly, op by
+    op (`crop_faces`' detector and functions, the source embedding's
+    ArcFace), runs jitted here, as in tests/test_torch_video.py: the same
+    math, one compile each instead of one per op."""
+    import jax
+
+    from ghost_tpu.cli import inference as jcli
+    from ghost_tpu.pipeline import swap as jswap
+    from tests.test_torch_video import _EAGER_JAX, _Jitted
+
+    monkeypatch.setattr(jcli, "load_pipeline", lambda args: jpipe)
+    for name in ("det_mod", "arc_mod"):
+        monkeypatch.setattr(jpipe, name, _Jitted(getattr(jpipe, name)))
+    for fname, static in _EAGER_JAX.items():
+        monkeypatch.setattr(jswap, fname, jax.jit(getattr(jswap, fname),
+                                                  static_argnames=static))
+    jcli.main(argv)
+
+
+@pytest.mark.parametrize("route", list(ENHANCE_ROUTES))
+def test_enhance_route_matches_jax(files, loaded, swapped, enhancer_files,
+                                   narrow_enhancer, route, capsys,
+                                   monkeypatch):
+    """`--enhance_output face` and `full --bg_model srvgg` through
+    `main(argv, device="cpu")` on the replicas' `.pth` files: the written
+    image is within _frames_close of the JAX CLI's `main` body on the
+    same files and inputs, and the post-pass changes the swapped frame.
+    With face, `run(args, pipe)` on `loaded` writes the same image bit for
+    bit."""
+    from tests.test_torch_pipeline import _frames_close
+
+    jpipe, tpipe = loaded
+    out = str(files["dir"] / f"enhance_{route}.png")
+    out_jax = str(files["dir"] / f"enhance_{route}_jax.png")
+    argv = _enhance_argv(files, enhancer_files, route, out)
+    tcli.main(argv, device="cpu")
+    printed = capsys.readouterr().out
+    assert "Swapped Image saved" in printed
+    assert "random GFPGAN" not in printed and "random srvgg" not in printed
+    _jax_main(jpipe, _enhance_argv(files, enhancer_files, route, out_jax),
+              monkeypatch)
+    written, ref = read_image_rgb(out), read_image_rgb(out_jax)
+    assert written.shape == ref.shape == swapped.shape
+    _frames_close(written, ref)
+    assert (written != swapped).mean() > 0.01
+    if route == "face":
+        tcli.run(tcli.build_parser().parse_args(argv), tpipe)
+        np.testing.assert_array_equal(read_image_rgb(out), written)
+
+
+@pytest.mark.parametrize("missing", ["gfpgan", "bg"])
+def test_enhancer_missing_weights_exit_like_jax(files, loaded,
+                                                enhancer_files,
+                                                narrow_enhancer, missing):
+    """Without --allow_random_weights, a missing --gfpgan_path or
+    --bg_upsampler_path exits as the JAX CLI does, with its message."""
+    from ghost_tpu.cli import inference as jcli
+
+    jpipe, tpipe = loaded
+    gfp = "missing.pth" if missing == "gfpgan" else enhancer_files["gfpgan"]
+    argv = _argv(files, "--enhance_output", "full", "--gfpgan_path", gfp,
+                 "--bg_upsampler_path", "missing.pth")
+    with pytest.raises(SystemExit) as ref:
+        jcli.build_enhancer(jcli.build_parser().parse_args(argv), jpipe)
+    with pytest.raises(SystemExit) as got:
+        tcli.build_enhancer(tcli.build_parser().parse_args(argv), tpipe)
+    assert str(got.value) == str(ref.value)
+    assert str(got.value).startswith(
+        "missing --gfpgan_path" if missing == "gfpgan"
+        else "missing --bg_upsampler_path")
+
+
+def test_enhancer_state_dicts_match_replicas():
+    """The numpy writers `chip_smoke.py` uses for full-width enhancer
+    checkpoints give the replicas' names and shapes (narrow configs)."""
+    from tests.test_enhancers import (TGFPGANv1Clean, TorchRRDBNet,
+                                      TorchSRVGG)
+    from torch_cli_inputs import (gfpgan_state_dict, rrdb_state_dict,
+                                  srvgg_state_dict)
+
+    rng = np.random.default_rng(0)
+    for sd, tm in (
+            (gfpgan_state_dict(rng, 64, 32, 2, 2, 0.25),
+             TGFPGANv1Clean(64, 32, 2, 2, 0.25)),
+            (rrdb_state_dict(rng, 8, 2, 4, scale=2),
+             TorchRRDBNet(3, 3, 8, 2, 4, scale=2)),
+            (srvgg_state_dict(rng, 8, 3, 4), TorchSRVGG(3, 3, 8, 3, 4))):
+        ref = tm.state_dict()
+        assert sorted(sd) == sorted(ref)
+        for k, v in ref.items():
+            assert sd[k].shape == tuple(v.shape) and sd[k].dtype == np.float32, k
 
 
 # ------------------------------------------------------------ pack routes

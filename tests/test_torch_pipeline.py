@@ -203,7 +203,8 @@ def test_port_imports_neither_jax_nor_ghost_tpu():
             "assert 'ghost_tpu_torch.core.checkpoint' in names, names\n"
             "assert 'ghost_tpu_torch.models.sr.spade' in names, names\n"
             "for name in ('cli.inference', 'data.frames', 'pipeline.video',\n"
-            "             'convert.torch_loader', 'models.aei_resnet'):\n"
+            "             'convert.torch_loader', 'models.aei_resnet',\n"
+            "             'pipeline.enhance', 'models.sr.gfpgan'):\n"
             "    assert 'ghost_tpu_torch.' + name in names, (name, names)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ghost_tpu'))\n"

@@ -1,9 +1,11 @@
 """Seeded inputs of the swap CLI, made with numpy: state dicts with the
 reference's parameter names and shapes (reference network/AEI_Net.py,
 network/AADLayer.py, network/resnet.py, insightface iresnet), what
-`G_*.pth` and `backbone.pth` hold, at any generator width; and a source
-png, a target png and an mp4 clip. No jax here: `chip_smoke.py` and the
-card tests use them too.
+`G_*.pth` and `backbone.pth` hold, at any generator width, and what the
+enhancer's `GFPGANv1.4.pth`, `RealESRGAN_x4plus.pth` and
+`realesr-general-x4v3.pth` hold (gfpgan / basicsr / realesrgan names);
+and a source png, a target png and an mp4 clip. No jax here:
+`chip_smoke.py` and the card tests use them too.
 
 The names follow `tests/test_convert.py:48-75,109-134` (unet AEI-Net,
 iresnet); the linknet and resnet encoders are added. Kernels are drawn
@@ -16,6 +18,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from ghost_tpu_torch.models.sr.gfpgan import decoder_channels, unet_channels
 
 _DOWN_CH = (32, 64, 128, 256, 512, 1024, 1024)
 _UP_OUT = (1024, 512, 256, 128, 64, 32)
@@ -162,11 +166,121 @@ def arcface_state_dict(rng, layers=(1, 1, 1, 1)):
     return sd
 
 
-def save_pth(path, sd) -> None:
-    """torch.save a numpy state dict as tensors, as the reference ships it."""
+def _conv_b(rng, sd, name, cout, cin, k):
+    sd[f"{name}.weight"] = _kernel(rng, cout, cin, k, k)
+    sd[f"{name}.bias"] = _vec(rng, cout)
+
+
+def _style_layer(rng, sd, prefix, cin, cout, k, nsf, noise):
+    """A StyleConv (noise=True) or ToRGB of the clean StyleGAN2 decoder:
+    its modulated conv (weight (1, cout, cin, k, k), modulation Linear
+    with a bias near 1, as upstream inits it), bias (1, cout, 1, 1) and,
+    for a StyleConv, the noise weight (1,)."""
+    sd[f"{prefix}.modulated_conv.weight"] = _kernel(rng, 1, cout, cin, k, k) \
+        * np.float32(np.sqrt(cout))  # std 1/sqrt(cin k k)
+    sd[f"{prefix}.modulated_conv.modulation.weight"] = _kernel(rng, cin, nsf)
+    sd[f"{prefix}.modulated_conv.modulation.bias"] = 1.0 + _vec(rng, cin)
+    if noise:
+        sd[f"{prefix}.weight"] = _vec(rng, 1)
+    sd[f"{prefix}.bias"] = _vec(rng, cout).reshape(1, cout, 1, 1)
+
+
+def gfpgan_state_dict(rng, out_size=512, num_style_feat=512,
+                      channel_multiplier=2, num_mlp=8, narrow=1.0):
+    """A `GFPGANv1.4.pth` state dict (gfpganv1_clean_arch.GFPGANv1Clean's
+    names, toRGB.* and stylegan_decoder.style_mlp.* included; the noise
+    buffers left out), as `tests/test_enhancers.py:TGFPGANv1Clean`
+    holds it."""
+    uch = unet_channels(channel_multiplier, narrow)
+    dch = decoder_channels(channel_multiplier, narrow)
+    log_size = int(np.log2(out_size))
+    nsf = num_style_feat
+    sd = {}
+    _conv_b(rng, sd, "conv_body_first", uch[out_size], 3, 1)
+    cin = uch[out_size]
+    for i in range(log_size - 2):
+        cout = uch[2 ** (log_size - 1 - i)]
+        _conv_b(rng, sd, f"conv_body_down.{i}.conv1", cin, cin, 3)
+        _conv_b(rng, sd, f"conv_body_down.{i}.conv2", cout, cin, 3)
+        sd[f"conv_body_down.{i}.skip.weight"] = _kernel(rng, cout, cin, 1, 1)
+        cin = cout
+    _conv_b(rng, sd, "final_conv", uch[4], cin, 3)
+    sd["final_linear.weight"] = _kernel(rng, (2 * log_size - 2) * nsf,
+                                        uch[4] * 16)
+    sd["final_linear.bias"] = _vec(rng, (2 * log_size - 2) * nsf)
+    cin = uch[4]
+    for i in range(log_size - 2):
+        cout = uch[2 ** (i + 3)]
+        _conv_b(rng, sd, f"conv_body_up.{i}.conv1", cin, cin, 3)
+        _conv_b(rng, sd, f"conv_body_up.{i}.conv2", cout, cin, 3)
+        sd[f"conv_body_up.{i}.skip.weight"] = _kernel(rng, cout, cin, 1, 1)
+        for kind in ("scale", "shift"):
+            _conv_b(rng, sd, f"condition_{kind}.{i}.0", cout, cout, 3)
+            _conv_b(rng, sd, f"condition_{kind}.{i}.2", cout, cout, 3)
+        _conv_b(rng, sd, f"toRGB.{i}", 3, cout, 1)
+        cin = cout
+    dec = "stylegan_decoder"
+    for j in range(num_mlp):
+        mlp = f"{dec}.style_mlp.{2 * j}"
+        sd[f"{mlp}.weight"] = _kernel(rng, nsf, nsf)
+        sd[f"{mlp}.bias"] = _vec(rng, nsf)
+    sd[f"{dec}.constant_input.weight"] = rng.standard_normal(
+        (1, dch[4], 4, 4), dtype=np.float32)
+    _style_layer(rng, sd, f"{dec}.style_conv1", dch[4], dch[4], 3, nsf, True)
+    _style_layer(rng, sd, f"{dec}.to_rgb1", dch[4], 3, 1, nsf, False)
+    cin = dch[4]
+    for s in range(log_size - 2):
+        cout = dch[2 ** (s + 3)]
+        _style_layer(rng, sd, f"{dec}.style_convs.{2 * s}", cin, cout, 3,
+                     nsf, True)
+        _style_layer(rng, sd, f"{dec}.style_convs.{2 * s + 1}", cout, cout,
+                     3, nsf, True)
+        _style_layer(rng, sd, f"{dec}.to_rgbs.{s}", cout, 3, 1, nsf, False)
+        cin = cout
+    return sd
+
+
+def rrdb_state_dict(rng, num_feat=64, num_block=23, num_grow_ch=32,
+                    scale=4):
+    """A `RealESRGAN_x4plus.pth` state dict (basicsr rrdbnet_arch.RRDBNet's
+    names), as `tests/test_enhancers.py:TorchRRDBNet` holds it."""
+    nf, gc = num_feat, num_grow_ch
+    sd = {}
+    _conv_b(rng, sd, "conv_first", nf, 3 * {4: 1, 2: 4, 1: 16}[scale], 3)
+    for i in range(num_block):
+        for m in (1, 2, 3):
+            for k in range(1, 6):
+                _conv_b(rng, sd, f"body.{i}.rdb{m}.conv{k}",
+                        nf if k == 5 else gc, nf + (k - 1) * gc, 3)
+    for name in ("conv_body", "conv_up1", "conv_up2", "conv_hr"):
+        _conv_b(rng, sd, name, nf, nf, 3)
+    _conv_b(rng, sd, "conv_last", 3, nf, 3)
+    return sd
+
+
+def srvgg_state_dict(rng, num_feat=64, num_conv=32, upscale=4):
+    """A `realesr-general-x4v3.pth` state dict (realesrgan
+    srvgg_arch.SRVGGNetCompact's flat `body` list: conv / PReLU
+    alternating, the last conv at 2 * (num_conv + 1)), as
+    `tests/test_enhancers.py:TorchSRVGG` holds it."""
+    sd = {}
+    for i in range(num_conv + 1):
+        _conv_b(rng, sd, f"body.{2 * i}", num_feat, 3 if i == 0 else num_feat,
+                3)
+        sd[f"body.{2 * i + 1}.weight"] = 0.25 + _vec(rng, num_feat)
+    _conv_b(rng, sd, f"body.{2 * (num_conv + 1)}", 3 * upscale ** 2,
+            num_feat, 3)
+    return sd
+
+
+def save_pth(path, sd, wrapper: str | None = None) -> None:
+    """torch.save a numpy state dict as tensors, as the reference ships
+    it; basicsr-family checkpoints (GFPGAN, Real-ESRGAN) nest it under
+    `wrapper` ("params_ema")."""
     import torch
 
-    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(path))
+    tensors = {k: torch.from_numpy(v) for k, v in sd.items()}
+    torch.save(tensors if wrapper is None else {wrapper: tensors}, str(path))
 
 
 def write_media(d, rng, hw, n_frames, fps=25.0) -> dict:
