@@ -138,9 +138,39 @@ exits non-zero without its result lines:
               K1 as in phase 17, S2 1088 a chunk; then `run(args, pipe)`
               equal to `enhance(swap_image_fused(...))` bit for bit
 
-Each path (5, 8, 9, 13, 14, each CLI run of 17, 18 and 19, and each
-enhancer chunk of 19) runs with every launch count set to 0 just before
-it and read just after; the counts of 5, 8, 9 and 13 go into the
+ 20. gan      the GAN train step and the code around it (train_step.py,
+              loop.py, core/checkpoint.py, preempt.py): (a) the tier-1
+              tests' narrow config (AEI-Net width 1/16, 1 block; D ndf 8,
+              3 layers, 2 scales; ArcFace (1,1,1,1); B=2), card against
+              CPU from the same seeded state: one G and one D step,
+              canonical and round_trip, in f32 beside the CPU's own
+              spread (the batch's samples in the other order) and in
+              bf16 against the CPU's f32 step beside the CPU's own bf16
+              error (loss terms, gradients as Adam's moments, parameters,
+              BN statistics), and train_loop round_trip in f32 for 3 G
+              and 2 D steps; (b) full width as
+              ghost_tpu/cli/train.py builds it (AEI-Net unet 2 blocks,
+              MultiscaleDiscriminator n_layers 5 x 3 scales, instance
+              norm, iresnet100 ArcFace frozen, 256 px, batch 16) in f32
+              and bf16: canonical, then round_trip with a seeded
+              teacher_y, 6 G and 3 D steps each through train_loop: all
+              losses finite, every G tensor and encoder BN statistic
+              changed by every step, D changed by the D steps only;
+              G-step and D-step wall, peak memory and one G step under
+              torch.profiler; (c) resume at full width, f32, canonical,
+              deterministic cuDNN: saved at step 3, restored into a
+              state of other seeded weights, step 4 equal to the
+              uninterrupted run's bit for bit; (d) SIGTERM from a timer
+              thread during a run in a directory holding an older run's
+              later steps, at the default keep: a forced checkpoint of
+              the step it stopped on, kept as the latest, and the stop.
+              The path runs none of the
+              table's kernels, as in JAX (`fused_aad=False`): its counts
+              must read 0
+
+Each path (5, 8, 9, 13, 14, each CLI run of 17, 18 and 19, each enhancer
+chunk of 19 and each train run of 20) runs with every launch count set
+to 0 just before it and read just after; the counts of 5, 8, 9 and 13 go into the
 kernels line as `launches`, those of 17 and 19's CLI runs as
 `cli_launches`, those of 18 as `route_launches`, those of 19's chunks
 as `enhance_launches`.
@@ -286,6 +316,14 @@ ENHANCE_FLAGS = {"face": ("--enhance_output", "face"),
                  "rrdb": ("--enhance_output", "full", "--bg_model", "rrdb"),
                  "srvgg": ("--enhance_output", "full", "--bg_model",
                            "srvgg")}
+
+# the GAN train phase (20): full width as ghost_tpu/cli/train.py:260-348
+# builds it (AEI-Net unet 2 blocks at width 1, the multiscale
+# discriminator n_layers 5 x 3 scales with instance norm, iresnet100, 256
+# px, the CLI's default batch 16); G steps per run and the D cadence. The
+# tier-1 tests' narrow config is tests/torch_train_parity.py's NARROW
+GAN = dict(batch=16, steps=6, d_interval=2, num_blocks=2, width=1.0, ndf=64,
+           n_layers=5, num_D=3, arcface_layers=(3, 13, 30, 3))
 
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -3037,6 +3075,335 @@ def _enhance_cli(card, f, ef, cli, s2_chunk):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The GAN train step (phase 20)
+# ---------------------------------------------------------------------------
+
+
+def _tp():
+    """tests/torch_train_parity.py: the narrow config, the seeded models
+    and batches, and the card-against-CPU step check the card tests
+    share."""
+    return _test_inputs("torch_train_parity")
+
+
+def _gan_models(device, policy, full, seed):
+    """G (AEINet, train mode), D and the frozen ArcFace: full width as
+    `ghost_tpu/cli/train.py:260-300` builds them, or the tier-1 tests'
+    narrow config; seeded weights, drawn on `device`."""
+    tp = _tp()
+    return tp.gan_models(GAN if full else tp.NARROW, policy, seed, device)
+
+
+def _loop_cfg(**kw):
+    from ghost_tpu_torch.train.loop import LoopConfig
+
+    base = dict(d_interval=GAN["d_interval"], print_interval=10 ** 9,
+                show_step=10 ** 9, save_interval=10 ** 9)
+    base.update(kw)
+    return LoopConfig(**base)
+
+
+def _gan_parity(device, card):
+    """(a) The tier-1 tests' narrow config on the card against the CPU
+    from the same seeded state, each beside a yardstick of the CPU's own.
+
+    (a1) One G and one D step, canonical and round_trip, in f32 and in
+    bf16 (DEFAULT_POLICY, the CLI's --bf16): `card_against_cpu` of
+    tests/torch_train_parity.py, whose docstring gives the bounds and
+    their reasons (in bf16 beside the CPU's own bf16 error against the
+    f32 step; the card tests run the same check).
+    (a2) train_loop, round_trip with the ratchets, f32, 3 G and 2 D steps
+    (d_interval 2): step 0's metrics 1e-4 relative; later steps' metrics
+    within 5x the CPU's spread + 1e-2, the end state's parameters and BN
+    stats (relative L2) within 5x the spread + 1e-3. After the first
+    step two f32 runs part where a gradient's sign was not settled, and
+    Adam carries that through every later gradient: one reordering of
+    the CPU run is one sample of that spread (measured 1.5e-2 in step 2's
+    metrics)."""
+    from ghost_tpu_torch.train.loop import train_loop
+
+    tp = _tp()
+    batches = tp.gan_batches(3, tp.NARROW["batch"], seed=2)
+    ok, parts = True, []
+    zero_counts()
+    for name, policy in tp.POLICIES.items():
+        for mode in ("canonical", "round_trip"):
+            good, report = tp.card_against_cpu(batches[0], device, mode,
+                                               policy, seed=1)
+            ok &= good
+            parts.append(f"{name} {report}: {good}")
+    cpu = _gan_models("cpu", tp.POLICIES["f32"], False, seed=1)
+    runs = {}
+    for name, dev, bs in (("cpu", "cpu", batches),
+                          ("spread", "cpu", [tp.swapped(b) for b in batches]),
+                          ("card", device, batches)):
+        seen = []
+        st, g2, d2 = tp.gan_state([copy.deepcopy(m).to(dev) for m in cpu],
+                                  "round_trip", GAN["d_interval"])
+        st, _ = train_loop(st, g2, d2, bs, _loop_cfg(distill=True),
+                           max_steps=3,
+                           on_step=lambda i, m, mu: seen.append(m))
+        runs[name] = (seen, tp.state_tensors(st))
+    (cseen, cend), (sseen, send), (kseen, kend) = (
+        runs[n] for n in ("cpu", "spread", "card"))
+    steps = []
+    for i, (a, sp, k) in enumerate(zip(cseen, sseen, kseen)):
+        e_card = max(abs(k[key] / v - 1) for key, v in a.items())
+        e_cpu = max(abs(sp[key] / v - 1) for key, v in a.items())
+        steps.append(f"{e_card:.2e} ({e_cpu:.2e})")
+        ok &= a.keys() == k.keys() and e_card <= (
+            1e-4 if i == 0 else 5 * e_cpu + 1e-2)
+    params = [n for n in cend if n.startswith(("g.", "d."))
+              and "running" not in n]
+    stats = [n for n in cend if "running" in n]
+    loop = {}
+    for what, keys in (("params", params), ("stats", stats)):
+        loop[what] = (tp.rel_l2(kend, cend, keys), tp.rel_l2(send, cend, keys))
+        ok &= loop[what][0] <= 5 * loop[what][1] + 1e-3
+    ok &= [("lossD" in m) for m in kseen] == [True, False, True]
+    counts = read_counts()
+    log(f"gan parity (a) narrow, card vs CPU (the yardstick in brackets): "
+        f"one G+D step, {'; '.join(parts)}; train_loop f32 "
+        f"round_trip 3 G + 2 D: metrics by step {', '.join(steps)}, end "
+        f"parameters {loop['params'][0]:.2e} ({loop['params'][1]:.2e}), BN "
+        f"stats {loop['stats'][0]:.2e} ({loop['stats'][1]:.2e}) relative "
+        f"L2; launches {counts}: {ok} ({card})")
+    if not ok or any(counts.values()):
+        raise AssertionError("GAN train step: card against CPU")
+
+
+def _changed(cur, prev):
+    import torch
+
+    return [bool(x) for x in torch.stack(
+        [(a != b).any() for a, b in zip(cur, prev)]).tolist()]
+
+
+def _gan_full(device, card, policy_name):
+    """(b) Full width, batch 16: canonical, then round_trip with a seeded
+    teacher_y, 6 G and 3 D steps each through train_loop: every loss
+    finite, every G parameter tensor and encoder BN statistic changed by
+    every step, D's parameters changed by the D steps only; G-step and
+    D-step wall (synced), peak memory, and one profiled G step."""
+    import torch
+
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from ghost_tpu_torch.nn.layers import BatchNorm
+    from ghost_tpu_torch.train.loop import train_loop
+
+    policy = FULL_PRECISION if policy_name == "f32" else DEFAULT_POLICY
+    batches = _tp().gan_batches(GAN["steps"], GAN["batch"], seed=3)
+    out = {}
+    for mode in ("canonical", "round_trip"):
+        torch.cuda.empty_cache()
+        models = _gan_models(device, policy, True, seed=0)
+        st, g_step, d_step = _tp().gan_state(models, mode)
+        g, d = st.g, st.d
+        n_g = sum(p.numel() for p in g.parameters())
+        n_d = sum(p.numel() for p in d.parameters())
+        stats = [b for m in g.encoder.modules() if isinstance(m, BatchNorm)
+                 for b in (m.running_mean, m.running_var)]
+        times = {"g": [], "d": []}
+
+        def timed(fn, key):
+            def run(*a, **k):
+                torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                res = fn(*a, **k)
+                torch.cuda.synchronize(device)
+                times[key].append(time.perf_counter() - t)
+                return res
+            return run
+
+        snap = {"g": [p.detach().clone() for p in g.parameters()],
+                "s": [t.clone() for t in stats],
+                "d": [p.detach().clone() for p in d.parameters()]}
+        problems, seen = [], []
+
+        def on_step(i, metrics, mults):
+            cur = {"g": list(g.parameters()), "s": stats,
+                   "d": list(d.parameters())}
+            ch = {k: _changed(cur[k], snap[k]) for k in cur}
+            d_ran = i % GAN["d_interval"] == 0
+            if not all(ch["g"]):
+                problems.append(f"step {i}: {ch['g'].count(False)} G tensors "
+                                f"unchanged")
+            if not all(ch["s"]):
+                problems.append(f"step {i}: BN stats unchanged")
+            if d_ran and not any(ch["d"]) or not d_ran and any(ch["d"]):
+                problems.append(f"step {i}: D changed {sum(ch['d'])} tensors, "
+                                f"D step {d_ran}")
+            bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+            if bad:
+                problems.append(f"step {i}: non-finite {bad}")
+            for k in cur:
+                for a, b in zip(snap[k], cur[k]):
+                    a.copy_(b.detach())
+            seen.append(metrics)
+
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        t0 = time.perf_counter()
+        st, _ = train_loop(st, timed(g_step, "g"), timed(d_step, "d"),
+                           batches, _loop_cfg(distill=mode != "canonical"),
+                           max_steps=GAN["steps"], on_step=on_step)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        gt, dt = times["g"], times["d"]
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        last = seen[-1]
+        log(f"gan {policy_name} {mode}: G {n_g / 1e6:.1f} M params, D "
+            f"{n_d / 1e6:.2f} M, batch {GAN['batch']} at 256 px: "
+            f"{len(gt)} G steps {', '.join(f'{t * 1e3:.1f}' for t in gt)} ms "
+            f"(median after the first {med(gt[1:]) * 1e3:.1f} ms), "
+            f"{len(dt)} D steps {', '.join(f'{t * 1e3:.1f}' for t in dt)} ms; "
+            f"loop wall {wall:.2f} s; peak memory {peak:.2f} GiB; last "
+            f"metrics {json.dumps({k: round(v, 5) for k, v in last.items()})};"
+            f" launches {counts} ({card})")
+        n_d = len(range(0, GAN["steps"], GAN["d_interval"]))
+        if problems or len(gt) != GAN["steps"] or len(dt) != n_d \
+                or any(counts.values()):
+            raise AssertionError(f"GAN train {policy_name} {mode}: "
+                                 f"{problems}")
+        b = {k: torch.as_tensor(v, device=device)
+             for k, v in batches[0].items()}
+        log(f"gan {policy_name} {mode}: one G step under torch.profiler")
+        _profile(lambda: g_step(st, b), device)
+        out[mode] = (med(gt[1:]), med(dt), peak)
+        del st, models, g, d, snap, stats
+    return out
+
+
+def _gan_resume(device, card, d):
+    """(c) Full width, f32, canonical, deterministic cuDNN: 5 iterations
+    (D at 0, 2, 4) saving at step 3; a state of other seeded weights,
+    restored from step 3, takes iteration 4 (the frozen ArcFace, which
+    no checkpoint holds, is the same): every tensor (parameters,
+    BN statistics, Adam moments and step counts, the EMA) equal to the
+    uninterrupted run's, bit for bit, and the same step, update counts
+    and ratchets."""
+    import torch
+
+    from ghost_tpu_torch.core.checkpoint import CheckpointManager
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.train.loop import train_loop
+
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        batches = _tp().gan_batches(5, GAN["batch"], seed=4)
+        mgr = CheckpointManager(Path(d) / "gan_ck")
+        models = _gan_models(device, FULL_PRECISION, True, seed=0)
+        arc = models[2]  # frozen, outside the state: the same in both runs
+        st, g_step, d_step = _tp().gan_state(models, "canonical")
+        t0 = time.perf_counter()
+        st, _ = train_loop(st, g_step, d_step, batches,
+                           _loop_cfg(save_interval=3, distill=True),
+                           checkpoint_manager=mgr, max_steps=5)
+        full = _tp().state_tensors(st)
+        full_meta = (st.step, st.mults, st.g_opt.count, st.d_opt.count)
+        t_full = time.perf_counter() - t0
+        del st, models
+        torch.cuda.empty_cache()
+        g, dis, _ = _gan_models(device, FULL_PRECISION, True, seed=5)
+        st, g_step, d_step = _tp().gan_state((g, dis, arc), "canonical")
+        t0 = time.perf_counter()
+        st = mgr.restore(3, like=st)
+        t_restore = time.perf_counter() - t0
+        st, _ = train_loop(st, g_step, d_step, batches[4:],
+                           _loop_cfg(distill=True), start_iteration=4,
+                           max_steps=5)
+        res = _tp().state_tensors(st)
+        meta = (st.step, st.mults, st.g_opt.count, st.d_opt.count)
+        del st
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev
+    size = sum(p.stat().st_size for p in (Path(d) / "gan_ck").rglob("*")
+               if p.is_file())
+    differ = [k for k in full if not torch.equal(full[k], res[k])]
+    log(f"gan resume (c) full width f32 canonical: 5 iterations in "
+        f"{t_full:.2f} s with the step-3 save ({size / 2 ** 30:.2f} GiB on "
+        f"disk), restore {t_restore:.2f} s; step 4 of the resumed run equal "
+        f"bit for bit in {len(full) - len(differ)} of {len(full)} tensors; "
+        f"step / ratchets / update counts {meta} vs {full_meta} ({card})")
+    if differ or meta != full_meta or full.keys() != res.keys():
+        raise AssertionError(f"resume differs: {differ[:8]}")
+
+
+def _gan_preempt(device, card, d):
+    """(d) SIGTERM sent to this process by a timer thread during a run
+    (narrow config on the card), in a directory holding an older run's
+    steps 0-11, at the default keep: the loop saves a forced checkpoint
+    of the step it was on, over the stale snapshot of that step, and
+    stops; that step is the latest and stays (orbax's save-order
+    eviction), with the four last-saved stale ones."""
+    import os
+    import signal
+    import threading
+
+    import torch
+
+    from ghost_tpu_torch.core.checkpoint import CheckpointManager
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.train.loop import train_loop
+    from ghost_tpu_torch.train.preempt import PreemptionGuard
+
+    old = CheckpointManager(Path(d) / "gan_preempt", keep=12)
+    for step in range(12):  # an older run's snapshots, all later
+        old.save(step, {"stale": True})
+    mgr = CheckpointManager(Path(d) / "gan_preempt")  # keep 5
+    st, g_step, d_step = _tp().gan_state(
+        _gan_models(device, FULL_PRECISION, False, seed=6), "canonical")
+
+    def on_step(i, metrics, mults):
+        if i == 0:
+            threading.Timer(0.01, os.kill,
+                            (os.getpid(), signal.SIGTERM)).start()
+
+    with PreemptionGuard() as guard:
+        st, _ = train_loop(st, g_step, d_step,
+                           _tp().gan_batches(10, seed=7),
+                           _loop_cfg(), checkpoint_manager=mgr,
+                           preemption=guard, on_step=on_step)
+    stopped = st.step - 1
+    saved = mgr.restore(stopped)
+    same = all(torch.equal(saved["g"][k], v.cpu())
+               for k, v in st.g.state_dict().items())
+    kept = [s for s in range(12) if s != stopped][-4:] + [stopped]
+    log(f"gan preemption (d): SIGTERM from a timer thread 10 ms after step "
+        f"0's observer; the loop stopped after {st.step} G steps and saved "
+        f"step {stopped} (forced, over a stale snapshot of that step, "
+        f"below 12 stale ones, keep 5): equal to the live state {same}; "
+        f"steps kept in save order {mgr.all_steps()}, expected {kept}")
+    if not guard.triggered or st.step >= 10 or "stale" in saved or not same \
+            or mgr.all_steps() != kept or mgr.latest_step() != stopped:
+        raise AssertionError("preemption did not save and stop")
+
+
+def phase_gan(device, card):
+    """Phase 20: the GAN train step and the code around it (loop,
+    checkpoints, preemption). The path launches none of the table's
+    kernels, as in JAX (`fused_aad=False`): each run's counts, zeroed
+    just before it, must read 0."""
+    import torch
+
+    t0 = time.perf_counter()
+    _gan_parity(device, card)
+    full = {p: _gan_full(device, card, p) for p in ("f32", "bf16")}
+    with tempfile.TemporaryDirectory() as d:
+        _gan_resume(device, card, d)
+        _gan_preempt(device, card, d)
+    torch.cuda.empty_cache()
+    log(f"gan: phase 20 in {time.perf_counter() - t0:.1f} s; median G / D "
+        f"step ms and peak GiB: " + "; ".join(
+            f"{p} {m} {v[0] * 1e3:.1f} / {v[1] * 1e3:.1f}, {v[2]:.2f}"
+            for p, r in full.items() for m, v in r.items()) + f" ({card})")
+
+
 def main(argv):
     import torch
 
@@ -3076,6 +3443,7 @@ def main(argv):
         routes = phase_routes(card, files)
         enhance, enhance_cli = phase_enhance(card, files, cli)
         cli.update(enhance_cli)
+    phase_gan(device, card)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -20,8 +20,10 @@ convs pack into one `attr_gb` kernel and the two id FCs into one
 The port loads the tree with its strict bridge,
 `convert/from_jax.py:load_flax_variables`, which the parity tests hold
 against the JAX models; the converters themselves are pure numpy and do
-not depend on the model's width. `convert_scrfd_state_dict` reads the
-mmdet SCRFD checkpoints (`--detector_path *.pth`). The enhancer's
+not depend on the model's width. `convert_discriminator_state_dict`
+reads the trainer's multiscale discriminator (D_*.pth);
+`convert_scrfd_state_dict` the mmdet SCRFD checkpoints
+(`--detector_path *.pth`). The enhancer's
 checkpoints (`--enhance_output face|full`) read through
 `convert_gfpgan_state_dict` (GFPGANv1.4.pth), `convert_rrdbnet_state_dict`
 (RealESRGAN_x4plus.pth) and `convert_srvgg_state_dict`
@@ -325,6 +327,26 @@ def convert_scrfd_state_dict(sd: Mapping[str, np.ndarray], arch=None):
     for lvl in range(n_levels):
         hp[f"scale{lvl}"] = sd[f"bbox_head.scales.{lvl}.scale"]
     return {"params": params, "batch_stats": stats}
+
+
+def convert_discriminator_state_dict(
+    sd: Mapping[str, np.ndarray], num_D: int = 3, n_layers: int = 5
+):
+    """MultiscaleDiscriminator .pth (D_*.pth, getIntermFeat=False layout:
+    `layer{i}` Sequentials) -> the flax tree of
+    `ghost_tpu/convert/torch_loader.py:439`. torch flattens the groups
+    [conv, lrelu] + n_layers x [conv, norm, lrelu] + [conv]; a paramless
+    InstanceNorm still advances the module index, so the convs sit at 0,
+    2, 5, 8, ... and the head at 2 + 3 * n_layers."""
+    params: Dict = {}
+    for i in range(num_D):
+        scale: Dict = {}
+        for n in range(n_layers + 1):
+            scale[f"stage{n}"] = _conv_wb(
+                sd, f"layer{i}.{0 if n == 0 else 2 + 3 * (n - 1)}")
+        scale["head"] = _conv_wb(sd, f"layer{i}.{2 + 3 * n_layers}")
+        params[f"scale{i}"] = scale
+    return {"params": params}
 
 
 def _conv_wb(sd, name):

@@ -53,15 +53,16 @@ def _upsample2x(x):
 
 
 class DownBlock(nn.Module):
-    """conv4x4 stride-2 + BN + LeakyReLU(0.1)."""
+    """conv4x4 stride-2 + BN + LeakyReLU(0.1); `train` takes the BN's
+    batch statistics and moves its running ones."""
 
     def __init__(self, cin, features, policy: Policy = DEFAULT_POLICY,
-                 device=None):
+                 device=None, train: bool = False):
         super().__init__()
         cd = policy.compute_dtype
         self.conv = Conv(cin, features, 4, 2, padding=1, use_bias=False,
                          dtype=cd, device=device)
-        self.bn = BatchNorm(features, dtype=cd, device=device)
+        self.bn = BatchNorm(features, dtype=cd, device=device, train=train)
 
     def forward(self, x):
         return leaky_relu(self.bn(self.conv(x)), 0.1)
@@ -72,13 +73,14 @@ class UpBlock(nn.Module):
     or add (linknet)."""
 
     def __init__(self, cin, features, backbone="unet",
-                 policy: Policy = DEFAULT_POLICY, device=None):
+                 policy: Policy = DEFAULT_POLICY, device=None,
+                 train: bool = False):
         super().__init__()
         cd = policy.compute_dtype
         self.backbone = backbone
         self.deconv = ConvTranspose(cin, features, 4, 2, 1, use_bias=False,
                                     dtype=cd, device=device)
-        self.bn = BatchNorm(features, dtype=cd, device=device)
+        self.bn = BatchNorm(features, dtype=cd, device=device, train=train)
 
     def forward(self, x, skip):
         x = leaky_relu(self.bn(self.deconv(x)), 0.1)
@@ -91,20 +93,21 @@ class MLAttrEncoder(nn.Module):
     """Multi-level attribute encoder: 8 NCHW maps coarse->fine."""
 
     def __init__(self, backbone="unet", policy: Policy = DEFAULT_POLICY,
-                 width: float = 1.0, device=None):
+                 width: float = 1.0, device=None, train: bool = False):
         super().__init__()
         self.policy = policy
         down = [_scaled(c, width) for c in _DOWN_CH]
         cin = 3
         for i, ch in enumerate(down):
-            self.add_module(f"down{i + 1}", DownBlock(cin, ch, policy, device))
+            self.add_module(f"down{i + 1}", DownBlock(cin, ch, policy, device,
+                                                      train))
             cin = ch
         attr_ch = [down[-1]]
         h_ch = down[-1]
         for i, ch in enumerate(_UP_OUT):
             ch = _scaled(ch, width)
             self.add_module(f"up{i + 1}", UpBlock(h_ch, ch, backbone, policy,
-                                                  device))
+                                                  device, train))
             skip = down[-2 - i]
             h_ch = ch + skip if backbone == "unet" else ch
             attr_ch.append(h_ch)
@@ -257,16 +260,20 @@ class AEINet(nn.Module):
     """forward(Xt (B,256,256,3) NHWC, z_id (B,512)) -> (Y NHWC, z_attrs NHWC).
 
     fused_aad: False (the default, as in JAX) trains; True runs the
-    inference-only fused AAD kernel, as the swap pipeline does."""
+    inference-only fused AAD kernel, as the swap pipeline does.
+    train: the encoder's BatchNorms take batch statistics and move their
+    running ones on every forward (JAX's `train=True`);
+    `nn.layers.frozen_batch_stats` keeps them for a recompute."""
 
     def __init__(self, backbone="unet", c_id=512, num_blocks=2,
                  policy: Policy = DEFAULT_POLICY, width: float = 1.0,
-                 fused_aad: bool = False, device=None):
+                 fused_aad: bool = False, device=None, train: bool = False):
         super().__init__()
         if backbone in ("unet", "linknet"):
-            self.encoder = MLAttrEncoder(backbone, policy, width, device)
+            self.encoder = MLAttrEncoder(backbone, policy, width, device,
+                                         train)
         elif backbone == "resnet":
-            self.encoder = MLAttrEncoderResnet(policy, device)
+            self.encoder = MLAttrEncoderResnet(policy, device, train)
         else:
             raise ValueError(f"unknown backbone {backbone!r}")
         self.generator = AADGenerator(self.encoder.attr_channels, backbone,

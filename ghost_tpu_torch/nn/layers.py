@@ -17,6 +17,7 @@ statistics over tensors in the input dtype, and resize applies dense
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -157,15 +158,30 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1, flax numerics: (x - mean) *
-    (rsqrt(var + eps) * scale) + bias in f32, cast to `dtype`.
-    affine=False is flax's use_scale=False, use_bias=False."""
+    """BatchNorm over dim 1 with flax numerics.
+
+    Eval mode (`train=False`): (x - mean) * (rsqrt(var + eps) * scale) +
+    bias in f32 from the running statistics, cast to `dtype`.
+    affine=False is flax's use_scale=False, use_bias=False.
+
+    Train mode (`train=True`, flax's use_running_average=False, as
+    `ghost_tpu/nn/layers.py:266` builds it): the batch statistics over
+    every axis but dim 1, in f32 with flax's fast variance max(0, E[x^2]
+    - E[x]^2) (each mean a sum times the f32 reciprocal of the count),
+    normalise as above with them, and move the running statistics by
+    ra <- 0.9 * ra + 0.1 * batch, the variance the biased batch variance
+    (torch's BatchNorm takes E[(x - E[x])^2] and updates with the
+    unbiased one). The update is skipped inside `frozen_batch_stats`."""
+
+    momentum = 0.9  # flax's: ra <- momentum * ra + (1 - momentum) * batch
 
     def __init__(self, features, eps=1e-5, dtype=torch.float32, device=None,
-                 affine=True):
+                 affine=True, train=False):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.train_stats = train
+        self.update_stats = True
         self.weight = self.bias = None
         if affine:
             self.weight = nn.Parameter(torch.empty(features, device=device))
@@ -182,15 +198,50 @@ class BatchNorm(nn.Module):
         nn.init.zeros_(self.running_mean)
         nn.init.ones_(self.running_var)
 
+    def _batch_stats(self, xf):
+        dims = (0,) + tuple(range(2, xf.ndim))
+        inv_n = 1.0 / (xf.numel() // xf.shape[1])
+        mean = xf.sum(dim=dims) * inv_n
+        mean2 = torch.square(xf).sum(dim=dims) * inv_n
+        var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+        if self.update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        return mean, var
+
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mean = self.running_mean.view(shape)
-        mul = torch.rsqrt(self.running_var + self.eps)
+        xf = x.float()
+        if self.train_stats:
+            mean, var = self._batch_stats(xf)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps)
         if self.weight is None:
-            return ((x.float() - mean) * mul.view(shape)).to(self.dtype)
+            return ((xf - mean.view(shape)) * mul.view(shape)).to(self.dtype)
         mul = mul * self.weight
-        y = (x.float() - mean) * mul.view(shape) + self.bias.view(shape)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Train-mode BatchNorms under `module` keep their running statistics
+    for the duration (flax's apply with the batch_stats updates thrown
+    away, as `ghost_tpu/train/train_step.py:172-177` recomputes the
+    attributes)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield module
+    finally:
+        for m, s in zip(bns, saved):
+            m.update_stats = s
 
 
 class GroupNorm(nn.Module):
@@ -263,6 +314,32 @@ def rms_instance_norm(x, eps: float = 1e-8):
     x * rsqrt(mean(x^2) + eps) (`ghost_tpu/nn/layers.py:320-324`)."""
     ms = torch.mean(torch.square(x), dim=(1, 2), keepdim=True)
     return x * torch.rsqrt(ms + eps)
+
+
+def avg_pool_3x3s2(x):
+    """AvgPool2d(3, stride 2, padding 1, count_include_pad=False) over
+    NHWC axes (1, 2), the multiscale discriminator's downsample
+    (`ghost_tpu/nn/layers.py:470`): the window sum in f32 rounded to x's
+    dtype, then divided by the window's count of real pixels in x's
+    dtype, as JAX's reduce_window sum and division do. The sum is nine
+    strided slices of the zero-padded input added up: elementwise ops,
+    whose gradient is right on every device (F.avg_pool2d's CUDA
+    backward ignores divisor_override on channels_last input)."""
+    dt = x.dtype
+    h_in, w_in = x.shape[1], x.shape[2]
+    h, w = (h_in - 1) // 2 + 1, (w_in - 1) // 2 + 1
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    s = sum(xp[:, i:i + 2 * h - 1:2, j:j + 2 * w - 1:2]
+            for i in range(3) for j in range(3))
+    counts = np.outer(_window_counts(h_in, h), _window_counts(w_in, w))
+    counts = torch.from_numpy(counts).to(x.device, dt)
+    return s.to(dt) / counts.view(1, h, w, 1)
+
+
+def _window_counts(n: int, out: int) -> np.ndarray:
+    """Real (unpadded) taps of each 3-wide stride-2 window with padding 1."""
+    lo = np.arange(out) * 2 - 1
+    return (np.minimum(lo + 3, n) - np.maximum(lo, 0)).astype(np.float32)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -28,7 +28,8 @@ def step_lr(lr: float, step_size: int, gamma: float):
 
 class GhostAdam(torch.optim.Adam):
     """torch.optim.Adam with the reference's settings; `lr` is a float or
-    a schedule, read at the update count before each step."""
+    a schedule, read at the update count before each step. The count
+    rides in `state_dict()`, so a restored schedule resumes its clock."""
 
     def __init__(self, params, lr=4e-4, b1: float = 0.0, b2: float = 0.999,
                  weight_decay: float = 1e-4, eps: float = 1e-8):
@@ -43,6 +44,16 @@ class GhostAdam(torch.optim.Adam):
                 group["lr"] = float(self.schedule(self.count))
         self.count += 1
         return super().step(closure)
+
+    def state_dict(self):
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count", 0))
+        super().load_state_dict(state_dict)
 
 
 def _trust(num, den, coefficient, eps):

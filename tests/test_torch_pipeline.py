@@ -194,7 +194,7 @@ def test_build_without_device_needs_a_card():
 
 def test_port_imports_neither_jax_nor_ghost_tpu():
     """Every module of ghost_tpu_torch, found by walking the package,
-    imports without pulling in jax, flax or ghost_tpu."""
+    imports without pulling in jax, flax, orbax or ghost_tpu."""
     code = ("import importlib, pkgutil, sys, ghost_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages("
             "ghost_tpu_torch.__path__, 'ghost_tpu_torch.')]\n"
@@ -204,10 +204,12 @@ def test_port_imports_neither_jax_nor_ghost_tpu():
             "assert 'ghost_tpu_torch.models.sr.spade' in names, names\n"
             "for name in ('cli.inference', 'data.frames', 'pipeline.video',\n"
             "             'convert.torch_loader', 'models.aei_resnet',\n"
-            "             'pipeline.enhance', 'models.sr.gfpgan'):\n"
+            "             'pipeline.enhance', 'models.sr.gfpgan',\n"
+            "             'models.discriminator', 'train.train_step',\n"
+            "             'train.loop', 'core.loss_scale'):\n"
             "    assert 'ghost_tpu_torch.' + name in names, (name, names)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'ghost_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'orbax', 'ghost_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=Path(__file__).resolve().parents[1])
