@@ -168,12 +168,31 @@ exits non-zero without its result lines:
               table's kernels, as in JAX (`fused_aad=False`): its counts
               must read 0
 
+ 21. train cli the user's train CLI (`ghost_tpu_torch/cli/train.py`) on
+              seeded files (`tests/torch_train_cli_inputs.py`): 128 jpgs
+              of 256x256, flat and in 8 identity folders, phase 17's G
+              and backbone.pth, a full-width D_*.pth, a FAN msgpack (4 x
+              256), a LIPSPADE 10_net_G.pth (ngf 48) and a graph with
+              inswapper_128's signature: (a) the narrow config's
+              `main(argv)` on the card against `main(argv,
+              device="cpu")`, f32, 2 steps, beside the CPU's own spread
+              (phase 20 (a2)'s bounds); (b0) the loader alone, ms a
+              batch at 8 threads; (b) `main(argv)` with the CLI's
+              defaults (bf16, batch 16, --d_interval 10, 8 loader
+              workers), 12 steps: canonical with the eye loss, roundtrip,
+              self, distill with --teacher_upsample: finite losses, every
+              G and D tensor changed, a checkpoint and the grids written,
+              wall, time to the end of step 0, median iteration and
+              loader-wait ms, peak memory; (c) resume at full width from
+              step 3 to step 5; (d) every launch count 0
+
 Each path (5, 8, 9, 13, 14, each CLI run of 17, 18 and 19, each enhancer
-chunk of 19 and each train run of 20) runs with every launch count set
-to 0 just before it and read just after; the counts of 5, 8, 9 and 13 go into the
-kernels line as `launches`, those of 17 and 19's CLI runs as
-`cli_launches`, those of 18 as `route_launches`, those of 19's chunks
-as `enhance_launches`.
+chunk of 19, each train run of 20 and each train CLI run of 21) runs with
+every launch count set to 0 just before it and read just after; the
+counts of 5, 8, 9 and 13 go into the kernels line as `launches`, those of
+17 and 19's CLI runs as `cli_launches`, those of 18 as `route_launches`,
+those of 19's chunks as `enhance_launches`, those of 21 as
+`train_cli_launches`.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -324,6 +343,13 @@ ENHANCE_FLAGS = {"face": ("--enhance_output", "face"),
 # tier-1 tests' narrow config is tests/torch_train_parity.py's NARROW
 GAN = dict(batch=16, steps=6, d_interval=2, num_blocks=2, width=1.0, ndf=64,
            n_layers=5, num_D=3, arcface_layers=(3, 13, 30, 3))
+
+# the train CLI phase (21): the dataset (`cli/preprocess.py`'s crop size,
+# flat and in identity folders), the full-width runs' steps, and the
+# checkpoints' sizes as ghost_tpu/cli/train.py reads them (FAN WFLW_4HG:
+# 4 stacks x 256; LIPSPADE ngf 48)
+TRAIN_CLI = dict(images=128, identities=8, size=256, steps=12, fan_stacks=4,
+                 fan_features=256, sr_ngf=48)
 
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -3404,6 +3430,300 @@ def phase_gan(device, card):
             for p, r in full.items() for m, v in r.items()) + f" ({card})")
 
 
+# ------------------------------------------------------------ phase 21
+def train_cli_files(d, files):
+    """Phase 21's inputs in directory d, beside phase 17's full-width G
+    (unet 2 blocks) and iresnet100 `backbone.pth`: 128 seeded 256x256
+    jpgs (`cli/preprocess.py`'s crop size), flat and in 8 identity
+    folders; a full-width `D_*.pth` (n_layers 5 x 3 scales), a LIPSPADE
+    `10_net_G.pth` (ngf 48), a FAN msgpack (4 stacks x 256 features), an
+    inswapper-signature graph, and a narrow G `.pth` (width 1/16, 1
+    block) for the card-vs-CPU part. Returns their paths."""
+    import numpy as np
+
+    from ghost_tpu_torch.core.checkpoint import save_msgpack
+
+    cin = _test_inputs("torch_cli_inputs")
+    tin = _test_inputs("torch_train_cli_inputs")
+    c = TRAIN_CLI
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    f = {"G": files["G"], "arc": files["arc"], "D": f"{d}/D_unet_2blocks.pth",
+         "sr": f"{d}/10_net_G.pth", "fan": f"{d}/WFLW_4HG.msgpack",
+         "onnx": f"{d}/inswapper_stand_in.onnx",
+         "narrow_G": f"{d}/G_unet_1blocks_w16.pth",
+         "flat": tin.write_faces(f"{d}/faces", rng, c["images"], c["size"]),
+         "vgg": tin.write_faces(f"{d}/vgg", rng, c["images"], c["size"],
+                                identities=c["identities"])}
+    cin.save_pth(f["D"], tin.disc_state_dict(rng, num_D=3, n_layers=5,
+                                             ndf=64))
+    cin.save_pth(f["sr"], tin.spade_state_dict(rng, ngf=c["sr_ngf"]))
+    save_msgpack(f["fan"], tin.fan_variables(rng, c["fan_stacks"],
+                                             c["fan_features"]))
+    with open(f["onnx"], "wb") as fh:
+        fh.write(tin.inswapper_graph(rng))
+    cin.save_pth(f["narrow_G"], cin.aei_state_dict(rng, "unet", 1, 1 / 16))
+    mib = sum(Path(f[k]).stat().st_size
+              for k in ("D", "sr", "fan", "onnx")) / 2 ** 20
+    log(f"train cli: wrote {c['images']} jpgs twice, D, LIPSPADE, FAN and "
+        f"the teacher graph ({mib:.0f} MiB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return f
+
+
+def _train_spy(rec, swap=False, start=None):
+    """Spy on the port's train CLI's `train_loop` (the shared spy of
+    `tests/torch_train_cli_inputs.py`); the batches are not kept, so the
+    runs' peak memory is the CLI's own."""
+    from ghost_tpu_torch.train import loop
+
+    return _test_inputs("torch_train_cli_inputs").train_loop_spy(
+        loop, rec, start=start, swap=swap, keep_batches=False)
+
+
+def _param_clones(state):
+    """Copies of G's and D's parameters (the starting state of a run)."""
+    return [[p.detach().clone() for p in m.parameters()]
+            for m in (state.g, state.d)]
+
+
+def _train_cli_parity(card, tf, d):
+    """(a) The narrow config (G width 1/16, 1 block, from `.pth`; the
+    CLI's full-width D; tiny ArcFace, seeded), f32, batch 2, one loader
+    worker (the same batches), --d_interval 1, 2 steps: `main(argv)` on
+    the card against `main(argv, device="cpu")`, with phase 20 (a2)'s
+    bounds beside the CPU's own spread (its run with each batch's samples
+    in the other order): step 0's metrics 1e-4 relative, step 1's within
+    5x the spread + 1e-2, the end state's parameters and BN statistics
+    (relative L2) within 5x the spread + 1e-3. Returns the card run's
+    launch counts."""
+    from ghost_tpu_torch.cli import train as tcli
+
+    tp = _tp()
+    argv = ["--dataset_path", tf["flat"], "--G_path", tf["narrow_G"],
+            "--D_path", tf["D"], "--arcface_path", f"{d}/none.pth",
+            "--arcface_depth", "tiny", "--width", "0.0625", "--num_blocks",
+            "1", "--batch_size", "2", "--bf16", "", "--num_workers", "1",
+            "--d_interval", "1", "--max_steps", "2", "--save_interval",
+            "100000", "--show_step", "100000", "--output_dir", f"{d}/out_a"]
+    runs, counts = {}, None
+    for name, dev, swap in (("card", "cuda", False), ("cpu", "cpu", False),
+                            ("spread", "cpu", True)):
+        rec = {}
+        zero_counts()
+        with _train_spy(rec, swap):
+            _cli_call(lambda: tcli.main(argv + ["--run_name",
+                                                f"{d}/a_{name}"],
+                                        device=dev))
+        if name == "card":
+            counts = read_counts()
+        runs[name] = ([m for _, m in rec["metrics"]],
+                      tp.state_tensors(rec["final"]))
+    (cseen, cend), (sseen, send), (kseen, kend) = (
+        runs[n] for n in ("cpu", "spread", "card"))
+    ok, steps = len(kseen) == len(cseen) == 2, []
+    # relative, or absolute where the CPU's value is 0 (L_rec of a batch
+    # with no same-person pair)
+    rel = lambda x, v: abs(x - v) / abs(v) if v else abs(x)  # noqa: E731
+    for i, (a, sp, k) in enumerate(zip(cseen, sseen, kseen)):
+        e_card = max(rel(k[key], v) for key, v in a.items())
+        e_cpu = max(rel(sp[key], v) for key, v in a.items())
+        steps.append(f"{e_card:.2e} ({e_cpu:.2e})")
+        ok &= a.keys() == k.keys() and e_card <= (
+            1e-4 if i == 0 else 5 * e_cpu + 1e-2)
+    params = [n for n in cend if n.startswith(("g.", "d."))
+              and "running" not in n]
+    stats = [n for n in cend if "running" in n]
+    end = {}
+    for what, keys in (("params", params), ("stats", stats)):
+        end[what] = (tp.rel_l2(kend, cend, keys), tp.rel_l2(send, cend, keys))
+        ok &= end[what][0] <= 5 * end[what][1] + 1e-3
+    log(f"train cli (a) narrow main(argv), card vs CPU (the CPU's spread in "
+        f"brackets): metrics by step {', '.join(steps)}; end parameters "
+        f"{end['params'][0]:.2e} ({end['params'][1]:.2e}), BN stats "
+        f"{end['stats'][0]:.2e} ({end['stats'][1]:.2e}) relative L2; "
+        f"launches {counts}: {ok} ({card})")
+    if not ok:
+        raise AssertionError("train CLI: card against CPU")
+    return counts
+
+
+def _train_cli_loader(card, tf):
+    """The loader alone as the CLI builds it (`FaceEmbedDataset` on the
+    flat 128 jpgs, batch 16, 8 worker threads), two epochs with no
+    consumer work: ms per batch after each epoch's first; and one item's
+    assembly on one thread (three colour jitters, four resizes). Returns
+    the median ms per batch."""
+    from ghost_tpu_torch.data.datasets import FaceEmbedDataset
+    from ghost_tpu_torch.data.loader import PrefetchLoader
+
+    ds = FaceEmbedDataset([tf["flat"]], same_prob=0.8)
+    t0 = time.perf_counter()
+    for i in range(16):
+        ds[i]
+    item = (time.perf_counter() - t0) / 16 * 1e3
+    loader = PrefetchLoader(ds, 16, num_workers=8)
+    per = []
+    for _ in range(2):
+        t = time.perf_counter()
+        for j, _b in enumerate(loader):
+            now = time.perf_counter()
+            if j:
+                per.append((now - t) * 1e3)
+            t = now
+    med = sorted(per)[len(per) // 2]
+    log(f"train cli (b0) the loader alone, batch 16, 8 threads: "
+        f"{', '.join(f'{p:.1f}' for p in per)} ms a batch after each "
+        f"epoch's first (median {med:.1f}); one item on one thread "
+        f"{item:.1f} ms ({card})")
+    return med
+
+
+def _train_cli_full(card, tf, d):
+    """(b) `main(argv)` as a user runs it: the defaults (bf16, batch 16,
+    --d_interval 10, --num_workers 8), --pretrained from the full-width
+    `.pth` files, --max_steps 12, --show_step 5, --save_interval 10, in
+    canonical with the eye loss (FAN 4 x 256 from its msgpack), roundtrip
+    (identity folders, --same_identity), self and distill with
+    --teacher_upsample (the inswapper-signature graph on the executor,
+    LIPSPADE ngf 48). Each run: every loss finite, every G and D tensor
+    changed, the step-10 checkpoint and the grids of iterations 0, 5 and
+    10 written; wall, time to the end of step 0, median iteration and
+    loader-wait ms over iterations 2-11, peak memory. Returns each run's
+    launch counts."""
+    import torch
+
+    from ghost_tpu_torch.cli import train as tcli
+    from ghost_tpu_torch.core.checkpoint import CheckpointManager
+
+    c = TRAIN_CLI
+    base = ["--G_path", tf["G"], "--D_path", tf["D"], "--arcface_path",
+            tf["arc"], "--max_steps", str(c["steps"]), "--show_step", "5",
+            "--save_interval", "10", "--output_dir", f"{d}/out_b"]
+    extra = {
+        "canonical_eyes": ["--dataset_path", tf["flat"],
+                           "--eye_detector_loss", "1", "--weight_eyes", "1",
+                           "--fan_path", tf["fan"]],
+        "roundtrip": ["--dataset_path", tf["vgg"], "--mode", "roundtrip",
+                      "--vgg_dataset", "1", "--same_identity", "1"],
+        "self": ["--dataset_path", tf["flat"], "--mode", "self"],
+        "distill_upsample": ["--dataset_path", tf["flat"], "--mode",
+                             "distill", "--teacher_onnx", tf["onnx"],
+                             "--teacher_upsample", "1", "--sr_path",
+                             tf["sr"], "--sr_ngf", str(c["sr_ngf"])]}
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    counts, out = {}, {}
+    for name, flags in extra.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        with _train_spy(rec, start=_param_clones), contextlib.chdir(d):
+            wall, lines, _ = _cli_call(lambda: tcli.main(
+                base + flags + ["--run_name", name]))
+        counts[name] = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ends, waits = rec["ends"], rec["waits"]
+        iters = [(b - a) * 1e3 for a, b in zip(ends[1:-1], ends[2:])]
+        wait = [w * 1e3 for w in waits[2:len(ends)]]
+        bad = [(i, k) for i, m in rec["metrics"]
+               for k, v in m.items() if not math.isfinite(v)]
+        g0, d0 = rec["start"]
+        g_same = sum(bool(torch.equal(a, b)) for a, b in zip(
+            g0, rec["final"].g.parameters()))
+        d_same = sum(bool(torch.equal(a, b)) for a, b in zip(
+            d0, rec["final"].d.parameters()))
+        images = sorted(p.name for p in Path(d, "out_b", "images").glob(
+            f"generated_{name}_*.jpg"))
+        steps = CheckpointManager(Path(d, f"{name}_ckpt")).all_steps()
+        out[name] = (wall, ends[0] - t0, med(iters), med(wait), peak)
+        last = {k: round(v, 4) for k, v in rec["metrics"][-1][1].items()}
+        log(f"train cli (b) {name}: {len(ends)} steps, wall {wall:.2f} s, "
+            f"to the end of step 0 {ends[0] - t0:.2f} s, iterations 2-11 "
+            f"{', '.join(f'{t:.1f}' for t in iters)} ms (median "
+            f"{med(iters):.1f}), loader wait "
+            f"{', '.join(f'{w:.2f}' for w in wait)} ms (median "
+            f"{med(wait):.2f}, {sum(wait) / sum(iters):.2%} of the "
+            f"iterations); peak memory {peak:.2f} GiB; last metrics "
+            f"{json.dumps(last)}; G tensors unchanged {g_same}, D "
+            f"{d_same}; checkpoints "
+            f"{steps}; grids {images}; launches {counts[name]} ({card})")
+        if len(ends) != c["steps"] or bad or g_same or d_same \
+                or steps != [10] or len(images) != 3 \
+                or not any(ln.startswith("final:") for ln in lines):
+            raise AssertionError(f"train CLI {name}: non-finite {bad[:4]}, "
+                                 f"checkpoints {steps}, grids {images}")
+        del rec
+    return counts, out
+
+
+def _train_cli_resume(card, tf, d):
+    """(c) Resume at full width (bf16, batch 16, canonical) with
+    --save_interval 1: 4 steps, then a rerun to --max_steps 6 that prints
+    `resuming from checkpoint step 3` and ends with step 5 the latest
+    (steps 1-5 kept, the state of step 5 after 6 G steps). Returns the
+    two runs' launch counts."""
+    from ghost_tpu_torch.cli import train as tcli
+    from ghost_tpu_torch.core.checkpoint import CheckpointManager
+
+    argv = ["--dataset_path", tf["flat"], "--G_path", tf["G"], "--D_path",
+            tf["D"], "--arcface_path", tf["arc"], "--save_interval", "1",
+            "--show_step", "100000", "--run_name", "resume",
+            "--output_dir", f"{d}/out_c"]
+    counts, walls, said = {}, [], []
+    for steps in (4, 6):
+        zero_counts()
+        with contextlib.chdir(d):
+            wall, lines, _ = _cli_call(lambda: tcli.main(
+                argv + ["--max_steps", str(steps)]))
+        counts[f"resume_{steps}"] = read_counts()
+        walls.append(wall)
+        said += [ln for ln in lines if ln.startswith("resuming")]
+    mgr = CheckpointManager(Path(d, "resume_ckpt"))
+    last = mgr.restore(mgr.latest_step())
+    ok = (said == ["resuming from checkpoint step 3"]
+          and mgr.all_steps() == [1, 2, 3, 4, 5] and last["step"] == 6)
+    log(f"train cli (c) resume, full width: 4 steps in {walls[0]:.2f} s, "
+        f"the rerun to 6 in {walls[1]:.2f} s, said {said}; checkpoints "
+        f"{mgr.all_steps()}, the latest's G step count {last['step']}: "
+        f"{ok} ({card})")
+    if not ok:
+        raise AssertionError("train CLI resume")
+    return counts
+
+
+def phase_train_cli(card, files):
+    """Phase 21: the user's train CLI (`python -m
+    ghost_tpu_torch.cli.train`) through `main(argv)`: (a) card against
+    CPU at the narrow config, (b0) the loader alone, (b) the four modes
+    at full width as a user runs them, (c) resume at full width. The path
+    runs none of the table's kernels (`fused_aad=False`; FAN, the
+    executor and LIPSPADE are plain convolutions): each run's counts,
+    zeroed just before it, must read 0 (d). Returns the counts by run."""
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tf = train_cli_files(d, files)
+        counts = {"parity_card": _train_cli_parity(card, tf, d)}
+        loader_ms = _train_cli_loader(card, tf)
+        full, out = _train_cli_full(card, tf, d)
+        counts.update(full)
+        counts.update(_train_cli_resume(card, tf, d))
+    torch.cuda.empty_cache()
+    launched = {run: c for run, c in counts.items() if any(c.values())}
+    log(f"train cli: phase 21 in {time.perf_counter() - t0:.1f} s; wall / "
+        f"to step 0 s, median iteration / loader wait ms, peak GiB: "
+        + "; ".join(f"{n} {v[0]:.2f} / {v[1]:.2f}, {v[2]:.1f} / "
+                    f"{v[3]:.2f}, {v[4]:.2f}" for n, v in out.items())
+        + f"; the loader alone {loader_ms:.1f} ms a batch; runs that "
+        f"launched a kernel of the table: {launched} ({card})")
+    if launched:
+        raise AssertionError(f"train CLI launched kernels: {launched}")
+    return counts
+
+
 def main(argv):
     import torch
 
@@ -3443,7 +3763,8 @@ def main(argv):
         routes = phase_routes(card, files)
         enhance, enhance_cli = phase_enhance(card, files, cli)
         cli.update(enhance_cli)
-    phase_gan(device, card)
+        phase_gan(device, card)
+        train_cli = phase_train_cli(card, files)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3463,7 +3784,10 @@ def main(argv):
                            for key, runs in (("cli_launches", cli),
                                              ("route_launches", routes),
                                              ("enhance_launches", enhance))
-                           if any(c[name] for c in runs.values())}})
+                           if any(c[name] for c in runs.values())},
+                        # each train CLI run of phase 21 (all 0)
+                        "train_cli_launches": {run: c[name] for run, c
+                                               in train_cli.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,9 @@ reads the trainer's multiscale discriminator (D_*.pth);
 checkpoints (`--enhance_output face|full`) read through
 `convert_gfpgan_state_dict` (GFPGANv1.4.pth), `convert_rrdbnet_state_dict`
 (RealESRGAN_x4plus.pth) and `convert_srvgg_state_dict`
-(realesr-general-x4v3.pth). The SPADE route of the JAX module moves with
-its caller (`cli/convert.py`).
+(realesr-general-x4v3.pth). `convert_spade_generator_state_dict` reads
+the LIPSPADE SR generator (10_net_G.pth) behind the train CLI's
+`--teacher_upsample --sr_path *.pth`.
 """
 
 from __future__ import annotations
@@ -327,6 +328,120 @@ def convert_scrfd_state_dict(sd: Mapping[str, np.ndarray], arch=None):
     for lvl in range(n_levels):
         hp[f"scale{lvl}"] = sd[f"bbox_head.scales.{lvl}.scale"]
     return {"params": params, "batch_stats": stats}
+
+
+def _spectral_conv(sd, name):
+    """torch spectral_norm conv -> {params, spectral} fragments."""
+    p = {"kernel": np.transpose(sd[f"{name}.weight_orig"], (2, 3, 1, 0))}
+    if f"{name}.bias" in sd:
+        p["bias"] = sd[f"{name}.bias"]
+    s = {"u": sd[f"{name}.weight_u"], "v": sd[f"{name}.weight_v"]}
+    return p, s
+
+
+def _spade_norm(sd, name):
+    """SPADE module (reference models/networks/normalization.py:63-107):
+    affine-free synced BN stats + segmap-conditioned gamma/beta convs."""
+    p = {
+        "mlp_shared": {
+            "kernel": np.transpose(sd[f"{name}.mlp_shared.0.weight"],
+                                   (2, 3, 1, 0)),
+            "bias": sd[f"{name}.mlp_shared.0.bias"],
+        },
+        "mlp_gamma": {
+            "kernel": np.transpose(sd[f"{name}.mlp_gamma.weight"], (2, 3, 1, 0))
+        },
+        "mlp_beta": {
+            "kernel": np.transpose(sd[f"{name}.mlp_beta.weight"], (2, 3, 1, 0))
+        },
+    }
+    stats = {
+        "pfn": {
+            "mean": sd[f"{name}.param_free_norm.running_mean"],
+            "var": sd[f"{name}.param_free_norm.running_var"],
+        }
+    }
+    return p, stats
+
+
+def _spade_resblock(sd, name, learned_shortcut: bool):
+    """SPADEResnetBlock (reference models/networks/architecture.py:21-70)."""
+    p: Dict = {}
+    stats: Dict = {}
+    spec: Dict = {}
+    convs = ["conv_0", "conv_1"] + (["conv_s"] if learned_shortcut else [])
+    for c in convs:
+        p[c], spec[c] = _spectral_conv(sd, f"{name}.{c}")
+    norms = ["norm_0", "norm_1"] + (["norm_s"] if learned_shortcut else [])
+    for n in norms:
+        p[n], stats[n] = _spade_norm(sd, f"{name}.{n}")
+    return p, stats, spec
+
+
+def convert_spade_generator_state_dict(
+    sd: Mapping[str, np.ndarray], ngf: int = 48, lip: bool = True,
+    n_2xdown: int = 5,
+):
+    """SR generator .pth (10_net_G.pth layout) -> variables for
+    models.sr.generator.{LIPSPADEGenerator,SPADEGenerator}.
+
+    Reference structure: SPADEGenerator head/middle/ups blocks +
+    to_rgbs list (models/networks/generator.py:17-137; the test config
+    is_test=True uses to_rgbs[-1]) and, for netG='lipspade'
+    (models/config_sr.py:21), a LIPEncoder whose Sequential packs
+    [conv, IN, ReLU] + n x [SimplifiedLIP, conv, IN, (ReLU)]
+    (generator.py:353-388).
+    """
+    params: Dict = {}
+    stats: Dict = {}
+    spec: Dict = {}
+
+    blocks = [("head_0", False), ("G_middle_0", False), ("G_middle_1", False),
+              ("ups_0", True), ("ups_1", True), ("ups_2", True),
+              ("ups_3", True)]
+    for ours, shortcut in blocks:
+        theirs = ours if not ours.startswith("ups_") else \
+            f"ups.{ours.split('_')[1]}"
+        params[ours], stats[ours], spec[ours] = _spade_resblock(
+            sd, theirs, shortcut)
+
+    # is_test runs every phase and emits via the LAST to_rgb
+    # (generator.py:109-118)
+    n_rgb = max(int(k.split(".")[1]) for k in sd if k.startswith("to_rgbs."))
+    params["to_rgb"] = {
+        "Conv_0": {
+            "kernel": np.transpose(sd[f"to_rgbs.{n_rgb}.weight"], (2, 3, 1, 0)),
+            "bias": sd[f"to_rgbs.{n_rgb}.bias"],
+        }
+    }
+
+    if lip:
+        enc: Dict = {
+            "stem": {"Conv_0": {"kernel": _conv(sd, "lip_encoder.model.0")}}
+        }
+        for i in range(n_2xdown):
+            lip_idx = 3 + 4 * i
+            enc[f"lip{i}"] = {
+                "logit_conv": {
+                    "Conv_0": {
+                        "kernel": _conv(sd, f"lip_encoder.model.{lip_idx}.logit.0")
+                    }
+                },
+                "in_scale": sd[f"lip_encoder.model.{lip_idx}.logit.1.weight"],
+                "in_bias": sd[f"lip_encoder.model.{lip_idx}.logit.1.bias"],
+            }
+            enc[f"conv{i}"] = {
+                "Conv_0": {
+                    "kernel": _conv(sd, f"lip_encoder.model.{lip_idx + 1}"),
+                    "bias": sd[f"lip_encoder.model.{lip_idx + 1}.bias"],
+                }
+            }
+        params["lip_encoder"] = enc
+    else:
+        params["fc"] = {
+            "Conv_0": {"kernel": _conv(sd, "fc"), "bias": sd["fc.bias"]}
+        }
+    return {"params": params, "batch_stats": stats, "spectral": spec}
 
 
 def convert_discriminator_state_dict(

@@ -45,6 +45,13 @@ class GhostAdam(torch.optim.Adam):
         self.count += 1
         return super().step(closure)
 
+    def __getstate__(self):
+        # torch.optim.Optimizer pickles (and deep-copies) only its
+        # defaults, state and param_groups: the schedule and the count go
+        # with them
+        return {**super().__getstate__(), "schedule": self.schedule,
+                "count": self.count}
+
     def state_dict(self):
         sd = super().state_dict()
         sd["count"] = self.count

@@ -176,7 +176,10 @@ def make_train_steps(
 
     arc_apply: the frozen ArcFace, (B,112,112,3) in [-1, 1] -> (B,512);
     its parameters should not require grad.
-    teacher_apply: the frozen teacher G of self_distill, (xt, z) -> y.
+    teacher_apply: the frozen teacher G of self_distill, (xt, z) -> y;
+    round_trip takes it too where given (JAX's step reads teacher_y from
+    the batch in that mode, which its CLI does not fill), else the
+    batch's teacher_y.
     fan_apply: the frozen eye detector, [0, 1] NHWC 256 -> final-stack
     (B,64,64,98) heatmaps; with cfg.eye_loss it adds the pupil-channel
     (96, 97) heatmap loss.
@@ -228,7 +231,8 @@ def make_train_steps(
                 total = total + weights.eyes * l_eyes
             return total, aux
 
-        if cfg.mode == "self_distill" and teacher_apply is not None:
+        if cfg.mode in ("self_distill", "round_trip") \
+                and teacher_apply is not None:
             with torch.no_grad():
                 teacher_y = teacher_apply(xt, embed)
         else:

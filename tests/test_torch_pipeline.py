@@ -206,7 +206,10 @@ def test_port_imports_neither_jax_nor_ghost_tpu():
             "             'convert.torch_loader', 'models.aei_resnet',\n"
             "             'pipeline.enhance', 'models.sr.gfpgan',\n"
             "             'models.discriminator', 'train.train_step',\n"
-            "             'train.loop', 'core.loss_scale'):\n"
+            "             'train.loop', 'core.loss_scale', 'data.datasets',\n"
+            "             'data.loader', 'models.fan', 'train.distill',\n"
+            "             'train.distill_native', 'train.extra_trainers',\n"
+            "             'cli.train'):\n"
             "    assert 'ghost_tpu_torch.' + name in names, (name, names)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'orbax', 'ghost_tpu'))\n"

@@ -50,6 +50,8 @@ from ghost_tpu_torch.train import losses as tL
 from ghost_tpu_torch.train import preempt as tpreempt
 from ghost_tpu_torch.train import viz as tviz
 from tests.test_torch_pipeline import _variables
+from torch_train_cli_inputs import \
+    disc_state_dict as _reference_disc_state_dict
 
 
 def _np(x):
@@ -249,26 +251,6 @@ def test_discriminator_bf16_matches_jax():
         _close(o[-1], r[-1], rtol=0, atol=2e-2 * scale)
 
 
-def _reference_disc_state_dict(rng, num_D=2, n_layers=3, ndf=8):
-    """A D_*.pth state dict with the reference's key names
-    (`layer{i}.{idx}.weight|bias`, getIntermFeat=False)."""
-    sd = {}
-    for i in range(num_D):
-        cin, nf = 3, ndf
-        for n in range(n_layers + 1):
-            idx = 0 if n == 0 else 2 + 3 * (n - 1)
-            sd[f"layer{i}.{idx}.weight"] = rng.normal(
-                0, 0.1, (nf, cin, 4, 4)).astype(np.float32)
-            sd[f"layer{i}.{idx}.bias"] = rng.normal(0, 0.05, nf).astype(
-                np.float32)
-            cin, nf = nf, min(nf * 2, 512)
-        head = 2 + 3 * n_layers
-        sd[f"layer{i}.{head}.weight"] = rng.normal(
-            0, 0.1, (1, cin, 4, 4)).astype(np.float32)
-        sd[f"layer{i}.{head}.bias"] = np.zeros(1, np.float32)
-    return sd
-
-
 def test_discriminator_converter_matches_jax():
     """The port's converter gives JAX's tree on the same reference-named
     state dict (leaf for leaf, exactly), and the bridged port module
@@ -456,6 +438,28 @@ def test_ghost_adam_matches_optax_over_steps(schedule):
         _close(st["exp_avg"], adam.mu, rtol=1e-5, atol=1e-7)
         _close(st["exp_avg_sq"], adam.nu, rtol=2e-5, atol=1e-9)
     assert topt_.count == 6 and topt_.state_dict()["count"] == 6
+
+
+def test_ghost_adam_deepcopy_keeps_schedule_and_count():
+    """A deep copy of GhostAdam (as of a whole TrainState) keeps its
+    schedule and update count, and its next step equals the original's
+    (torch's Optimizer copies only defaults, state and param_groups)."""
+    import copy
+
+    from ghost_tpu_torch.train.optimizers import GhostAdam, step_lr
+
+    p = torch.nn.Parameter(torch.ones(3))
+    opt = GhostAdam([p], lr=step_lr(1e-2, 1, 0.5))
+    for _ in range(2):
+        p.grad = torch.full((3,), 0.5)
+        opt.step()
+    p2, opt2 = copy.deepcopy((p, opt))
+    assert opt2.count == 2 and opt2.schedule is opt.schedule
+    for q, o in ((p, opt), (p2, opt2)):
+        q.grad = torch.full((3,), 0.25)
+        o.step()
+    assert opt2.param_groups[0]["lr"] == opt.param_groups[0]["lr"] == 2.5e-3
+    assert torch.equal(p2, p) and opt2.count == 3
 
 
 # ---------------------------------------------------------- checkpoints

@@ -263,6 +263,30 @@ def test_g_and_d_step_match_jax(models, jax_steps, mode):
     _check_params(d_got, d_want, mu_want, "D params")
 
 
+def test_round_trip_teacher_apply_matches_jax(models, jax_steps):
+    """round_trip with the frozen teacher G given to the step, as the
+    port's CLI gives it in `--mode roundtrip`: the port's `g_step` takes
+    teacher_y from `teacher_apply` on (xt, embed); JAX's round_trip step
+    reads it from the batch, filled here by JAX's frozen teacher (the
+    same variables, eval mode) on the same (xt, embed). One G step from
+    the same state, held with `_check_g_step`'s bounds."""
+    m = models
+    jt = jaei.AEINet(backbone="unet", num_blocks=1, policy=JFULL,
+                     train=False, width=1 / 16)
+    b = dict(m["batches"][0])
+    b["teacher_y"] = np.asarray(jax.jit(
+        lambda xt, z: jt.apply(m["gv"], xt, z)[0])(b["xt"], b["embed"]))
+    cfg = tts.TrainStepConfig(mode="round_trip", d_interval=2)
+    s0 = jts.init_train_state(m["gv"], m["dv"], cfg)
+    s1, jm, _ = jax.jit(jax_steps["rt_steps"][0])(s0, _jbatch(b), _jmults())
+    g_step, _ = tts.make_train_steps(m["arc"], cfg,
+                                     teacher_apply=m["teacher"])
+    st, metrics, _ = g_step(_port_state(m, cfg), _tbatch(
+        {k: v for k, v in b.items() if k != "teacher_y"}))
+    assert "L_teacher" in metrics
+    _check_g_step(st, metrics, s0, s1, jm)
+
+
 @pytest.fixture(scope="module")
 def jax_switch_totals(models, jax_steps):
     """JAX's G objective for each distillation switch (mode distill) and
