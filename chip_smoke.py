@@ -186,13 +186,35 @@ exits non-zero without its result lines:
               loader-wait ms, peak memory; (c) resume at full width from
               step 3 to step 5; (d) every launch count 0
 
+ 22. distill  the enhancer-distillation CLI
+              (`ghost_tpu_torch/cli/distill_enhancer.py`) and the
+              auxiliary-trainer CLI (`cli/train_extras.py`) on seeded
+              files: (a1) distillation at the tier-1 tests' narrow config
+              (hq 32 background on the full-size RRDB teacher, hq 64 face
+              on GFPGAN at 64; student 4 x 1, batch 2, 2 steps, f32) on the
+              card against the CPU on the same draws, beside the CPU's
+              own spread; (b) distillation at full width in bf16:
+              background at the CLI's defaults (hq 256, batch 8, student
+              64 x 32) on RealESRGAN_x4plus, face at hq 512 on
+              GFPGANv1.4, 20 steps each: finite l1, every student tensor
+              moved, S2 exactly 34 forward and 33 dx launches a step, the
+              msgpack served by the SR seat, the student step and the
+              teacher pass timed apart, peak memory; (a2) the three
+              trainer modes at tests/test_train_extras_cli.py's narrow
+              flags, card against CPU; (c) the three modes at full width
+              (bf16, batch 16, G unet 2 blocks, iresnet100, D 5 x 3,
+              LIPSPADE ngf 48), 6 steps each, chained through --G_path
+              msgpacks: finite losses, the trained tensors moved, the
+              msgpacks bit for bit, step ms, peak memory, every count 0
+
 Each path (5, 8, 9, 13, 14, each CLI run of 17, 18 and 19, each enhancer
-chunk of 19, each train run of 20 and each train CLI run of 21) runs with
-every launch count set to 0 just before it and read just after; the
-counts of 5, 8, 9 and 13 go into the kernels line as `launches`, those of
-17 and 19's CLI runs as `cli_launches`, those of 18 as `route_launches`,
-those of 19's chunks as `enhance_launches`, those of 21 as
-`train_cli_launches`.
+chunk of 19, each train run of 20, each train CLI run of 21 and each CLI
+run of 22) runs with every launch count set to 0 just before it and
+read just after; the counts of 5, 8, 9 and 13 go into the kernels line
+as `launches`, those of 17 and 19's CLI runs as `cli_launches`, those of
+18 as `route_launches`, those of 19's chunks as `enhance_launches`, those
+of 21 as `train_cli_launches`, those of 22 as `distill_launches` and
+`train_extras_launches`.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -295,12 +317,27 @@ S2_CASES = [(8, 256, 256, 64, 64, "blk8"), (8, 128, 128, 128, 128, "blk7"),
             # the 10-px halo, through SRVGG x4v3 (64 features, x4: 48 out)
             (8, 290, 260, 3, 64, "srvgg 3->64"),
             (8, 290, 260, 64, 64, "srvgg 64->64"),
-            (8, 290, 260, 64, 48, "srvgg 64->48")]
+            (8, 290, 260, 64, 48, "srvgg 64->48"),
+            # the distillation student (64 features, 32 body convs) at the
+            # CLI's batch 8: background reads LQ 64x64 (hq 256 / 4, x4:
+            # 48 out), face 256x256 (hq 512 / 2, x2: 12 out)
+            (8, 64, 64, 3, 64, "distill bg 3->64"),
+            (8, 64, 64, 64, 64, "distill bg 64->64"),
+            (8, 64, 64, 64, 48, "distill bg 64->48"),
+            (8, 256, 256, 3, 64, "distill face 3->64"),
+            (8, 256, 256, 64, 64, "distill face 64->64"),
+            (8, 256, 256, 64, 12, "distill face 64->12")]
 # convs of each seat shape in one student pass (conv_0, 16 body, conv_last)
 S2_SEAT_PASS = {"seat 3->32": 1, "seat 32->32": 16, "seat 32->12": 1}
 # convs of each SRVGG x4v3 shape in one background tile (conv_0, 32 body,
 # conv_last): 34 launches
 S2_SRVGG_TILE = {"srvgg 3->64": 1, "srvgg 64->64": 32, "srvgg 64->48": 1}
+# convs of each shape in one distillation step: forward conv_0, 32 body
+# convs and conv_last (34), dx of all but conv_0, which reads the data (33)
+S2_DISTILL_STEP = {task: {f"distill {task} 3->64": (1, 0),
+                          f"distill {task} 64->64": (32, 32),
+                          f"distill {task} 64->{cout}": (1, 1)}
+                   for task, cout in (("bg", 48), ("face", 12))}
 # a timed S2 case rotates through input sets of at least this many bytes
 S2_ROTATE_BYTES = 128 * 2 ** 20
 STUDENT = Path(__file__).resolve().parent / "assets" / \
@@ -350,6 +387,14 @@ GAN = dict(batch=16, steps=6, d_interval=2, num_blocks=2, width=1.0, ndf=64,
 # 4 stacks x 256; LIPSPADE ngf 48)
 TRAIN_CLI = dict(images=128, identities=8, size=256, steps=12, fan_stacks=4,
                  fan_features=256, sr_ngf=48)
+
+# the distillation and auxiliary-trainer phase (22): steps of each
+# full-width distillation run; S2 launches a distillation step (forward:
+# conv_0, 32 body convs, conv_last; dx: all but conv_0); the trainers'
+# dataset (128 crops of 256 px with a mask each), steps a mode, LIPSPADE
+DISTILL = dict(steps=20, hq={"background": 256, "face": 512})
+DISTILL_S2 = {"forward": 34, "dx": 33}
+EXTRAS = dict(images=128, steps=6, sr_ngf=48)
 
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -1692,6 +1737,9 @@ def phase_s2(device, card):
     seat = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
             "bytes_ms": 0.0, "ops_ms": 0.0}
     tile = dict.fromkeys(seat, 0.0)
+    distill = {task: {"ms": 0.0, "dx_ms": 0.0, "plain_ms": 0.0,
+                      "library_ms": 0.0, "bound_ms": 0.0}
+               for task in S2_DISTILL_STEP}
     log(f"S2 conv3x3 vs plain ({card}):")
     for b, h, w, cin, cout, tag in S2_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1722,7 +1770,7 @@ def phase_s2(device, card):
             if not (bool(torch.isfinite(y).all()) and bool((err <= bound).all())):
                 raise AssertionError(f"S2 disagrees with plain at {name} "
                                      f"{shape}: max err {e}")
-            dx_txt = ""
+            dx_txt, dx_ms = "", 0.0
             if dtype == torch.bfloat16:
                 # dx = S2 on the turned kernel, against the plain gradient
                 # (autograd of the plain version: an f32 conv of the same
@@ -1774,6 +1822,15 @@ def phase_s2(device, card):
                 f"{plain_ms * 1e3:9.1f} us, F.conv2d {lib_ms * 1e3:8.1f} us "
                 f"(|d| vs plain {lib_err:.1e}), bound {bound_ms * 1e3:7.1f} "
                 f"us ({by}); {len(sets)} input sets{dx_txt}")
+            for task, counts in S2_DISTILL_STEP.items():
+                if dtype == torch.bfloat16 and tag in counts:
+                    n, n_dx = counts[tag]
+                    acc = distill[task]
+                    acc["ms"] += n * kern_ms
+                    acc["dx_ms"] += n_dx * dx_ms
+                    acc["plain_ms"] += n * plain_ms
+                    acc["library_ms"] += n * lib_ms
+                    acc["bound_ms"] += (n + n_dx) * bound_ms
             for acc, counts in ((seat, S2_SEAT_PASS), (tile, S2_SRVGG_TILE)):
                 if dtype == torch.bfloat16 and tag in counts:
                     n = counts[tag]
@@ -1792,6 +1849,14 @@ def phase_s2(device, card):
         log(f"S2 per {what}, bf16): kernel {acc['ms']:.3f} ms, plain "
             f"{acc['plain_ms']:.3f} ms, F.conv2d {acc['library_ms']:.3f} ms, "
             f"bound {acc['bound_ms']:.3f} ms ({by}) ({card})")
+    for task, acc in distill.items():
+        # dx reads dy and k' and writes dx: the forward's bytes and
+        # operations with Cin and Cout swapped, so the same bound
+        log(f"S2 per distillation step ({task}, 8 images, bf16): forward "
+            f"34 convs {acc['ms']:.3f} ms (plain {acc['plain_ms']:.3f}, "
+            f"F.conv2d {acc['library_ms']:.3f}) + dx 33 convs "
+            f"{acc['dx_ms']:.3f} ms; bound {acc['bound_ms']:.3f} ms for the "
+            f"67 ({card})")
     return dict(max_abs_err=worst, ms=seat["ms"], plain_ms=seat["plain_ms"],
                 bound_ms=seat["bound_ms"], bound_by=by,
                 library_ms=seat["library_ms"],
@@ -3724,6 +3789,569 @@ def phase_train_cli(card, files):
     return counts
 
 
+# ------------------------------------------------------------ phase 22
+def distill_files(d, files):
+    """Phase 22's inputs in directory d, beside phase 17's full-width G
+    (unet 2 blocks) and iresnet100 `backbone.pth`: seeded full-size
+    `RealESRGAN_x4plus.pth` (23 blocks) and `GFPGANv1.4.pth` (512), a
+    GFPGAN at out_size 64 and a narrow G (width 1/16, 1 block) for the
+    card-vs-CPU part, a full-width `D_*.pth` (n_layers 5 x 3 scales), a
+    LIPSPADE `10_net_G.pth` (ngf 48); jpgs: 128 crops of 256 px and a
+    mask png for each (paired by basename), 16 crops of 512 px, and 3
+    images each of 32 and 64 px. Returns their paths."""
+    import cv2
+    import numpy as np
+
+    cin = _test_inputs("torch_cli_inputs")
+    tin = _test_inputs("torch_train_cli_inputs")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(22)
+    f = {"G": files["G"], "arc": files["arc"], "dir": d,
+         "rrdb": f"{d}/RealESRGAN_x4plus.pth",
+         "gfpgan": f"{d}/GFPGANv1.4.pth", "gfpgan64": f"{d}/GFPGAN_64.pth",
+         "narrow_G": f"{d}/G_unet_1blocks_w16.pth",
+         "D": f"{d}/D_unet_2blocks.pth", "sr": f"{d}/10_net_G.pth",
+         "faces": tin.write_faces(f"{d}/faces", rng, EXTRAS["images"], 256),
+         "faces512": tin.write_faces(f"{d}/faces512", rng, 16, 512),
+         "hq32": tin.write_faces(f"{d}/hq32", rng, 3, 32),
+         "hq64": tin.write_faces(f"{d}/hq64", rng, 3, 64),
+         "masks": f"{d}/masks"}
+    Path(f["masks"]).mkdir()
+    yy, xx = np.mgrid[:256, :256]
+    for i in range(EXTRAS["images"]):
+        soft = np.exp(-((yy - 128 - i % 7) ** 2 + (xx - 128) ** 2) / 4e3)
+        cv2.imwrite(f"{f['masks']}/{i:05d}.png",
+                    (soft * 255).astype(np.uint8))
+    cin.save_pth(f["rrdb"], cin.rrdb_state_dict(rng), wrapper="params_ema")
+    cin.save_pth(f["gfpgan"], cin.gfpgan_state_dict(rng),
+                 wrapper="params_ema")
+    cin.save_pth(f["gfpgan64"], cin.gfpgan_state_dict(rng, out_size=64),
+                 wrapper="params_ema")
+    cin.save_pth(f["narrow_G"], cin.aei_state_dict(rng, "unet", 1, 1 / 16))
+    cin.save_pth(f["D"], tin.disc_state_dict(rng, num_D=3, n_layers=5,
+                                             ndf=64))
+    cin.save_pth(f["sr"], tin.spade_state_dict(rng, ngf=EXTRAS["sr_ngf"]))
+    mib = sum(Path(f[k]).stat().st_size for k in (
+        "rrdb", "gfpgan", "gfpgan64", "D", "sr")) / 2 ** 20
+    log(f"distill: wrote the teachers, D and LIPSPADE ({mib:.0f} MiB) and "
+        f"the images in {time.perf_counter() - t0:.1f} s")
+    return f
+
+
+@contextlib.contextmanager
+def _distill_spy(rec, draws_on_cpu=False, swap=False):
+    """Spy on the port's distillation while `main` runs: per step the
+    metrics, the student step's and the teacher pass's synced ms, and the
+    S2 launches of the step's forward and of its backward (dx) apart;
+    the student module and its starting parameters. With
+    `draws_on_cpu`, the degradation draws come from a CPU generator
+    seeded as the CLI's and move to the batch's device (the card and the
+    CPU see the same LQ); with `swap`, each batch's samples and their
+    draws in the other order (the CPU's own spread)."""
+    import torch
+
+    from ghost_tpu_torch.cli import distill_enhancer as dcli
+    from ghost_tpu_torch.ops.cuda import conv3x3 as s2
+    from ghost_tpu_torch.train import distill_enhancer as tde
+
+    real_make, real_teacher = tde.make_enhancer_distill_step, \
+        tde.make_teacher_fn
+    real_draws, real_back = tde.degrade_draws, s2._Conv3x3.backward
+    real_batches = dcli._image_batches
+    dx = [0]
+    rec.update(metrics=[], step_ms=[], teacher_ms=[], fwd=[], dx=[],
+               ends=[])
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def backward(ctx, dy):
+        n = s2.conv3x3.launches
+        out = real_back(ctx, dy)
+        dx[0] += s2.conv3x3.launches - n
+        return out
+
+    def make(student, *a, **kw):
+        step, opt = real_make(student, *a, **kw)
+        rec["student"] = student
+        rec["start"] = [p.detach().clone() for p in student.parameters()]
+
+        def spy(lq, target):
+            sync()
+            n, dx[0] = s2.conv3x3.launches, 0
+            t = time.perf_counter()
+            m = step(lq, target)
+            sync()
+            rec["ends"].append(time.perf_counter())
+            rec["step_ms"].append((rec["ends"][-1] - t) * 1e3)
+            rec["dx"].append(dx[0])
+            rec["fwd"].append(s2.conv3x3.launches - n - dx[0])
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            return m
+
+        return spy, opt
+
+    def teacher_fn(mod, *a, **kw):
+        fn = real_teacher(mod, *a, **kw)
+
+        def timed(lq):
+            sync()
+            t = time.perf_counter()
+            out = fn(lq)
+            sync()
+            rec["teacher_ms"].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        return timed
+
+    cpu_gen = {}
+
+    def draws(generator, shape, *a, **kw):
+        if draws_on_cpu:
+            g = cpu_gen.setdefault("g", torch.Generator().manual_seed(0))
+            d = real_draws(g, shape, *a, **kw)
+            dev = generator.device
+            d = tde.DegradeDraws(d.sigma.to(dev), d.wobble, d.std.to(dev),
+                                 d.noise.to(dev), d.area)
+        else:
+            d = real_draws(generator, shape, *a, **kw)
+        if swap:
+            d = tde.DegradeDraws(d.sigma.flip(0), d.wobble, d.std.flip(0),
+                                 d.noise.flip(0), d.area)
+        return d
+
+    def batches(*a):
+        for b in real_batches(*a):
+            yield b[::-1].copy() if swap else b
+
+    patches = ((tde, "make_enhancer_distill_step", make),
+               (tde, "make_teacher_fn", teacher_fn),
+               (tde, "degrade_draws", draws),
+               (dcli, "_image_batches", batches))
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        s2._Conv3x3.backward = staticmethod(backward)
+        yield rec
+    finally:
+        for (mod, name, _), real in zip(patches, (
+                real_make, real_teacher, real_draws, real_batches)):
+            setattr(mod, name, real)
+        s2._Conv3x3.backward = staticmethod(real_back)
+
+
+def _distill_narrow_argv(df, task, out):
+    hq = 32 if task == "background" else 64
+    return ["--task", task, "--dataset_path", df[f"hq{hq}"],
+            "--teacher_path", df["rrdb" if task == "background"
+                                 else "gfpgan64"],
+            "--out", out, "--steps", "2", "--hq_size", str(hq),
+            "--batch_size", "2", "--student_feats", "4", "--student_convs",
+            "1", "--save_every", "0", "--log_every", "1", "--bf16", "false"]
+
+
+def _tree_rel_l2(a, b, c):
+    """Relative L2 of flax trees a and b against c (numpy leaves)."""
+    import numpy as np
+
+    def leaves(t):
+        return [np.asarray(v, np.float64) for v in _flat(t).values()]
+
+    num = sum(float(((x - y) ** 2).sum())
+              for x, y in zip(leaves(a), leaves(b)))
+    den = sum(float((y ** 2).sum()) for y in leaves(c))
+    return (num / den) ** 0.5
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _distill_parity(card, df):
+    """(a1) `distill_enhancer.main(argv)` at the tier-1 tests' narrow
+    config (hq 32 background with the full-size RRDB teacher, hq 64 face
+    with GFPGAN at out_size 64; batch 2, student 4 x 1, 2 steps, f32),
+    on the card against `main(argv, device="cpu")`, the same draws on
+    both (made on the CPU), beside the CPU's own spread (its run with
+    each batch's samples and draws in the other order), with phase 21's
+    bounds: step 0's loss terms 1e-4 relative, step 1's within 5x the
+    spread + 1e-2, the end student (relative L2) within 5x the spread +
+    1e-3. Returns the card runs' launch counts."""
+    from ghost_tpu_torch.cli import distill_enhancer as dcli
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+
+    d = df["dir"]
+    counts, ok, lines = {}, True, []
+    for task in ("background", "face"):
+        runs = {}
+        for name, dev, swap in (("card", "cuda", False), ("cpu", "cpu", False),
+                                ("spread", "cpu", True)):
+            out = f"{d}/a_{task}_{name}.msgpack"
+            rec = {}
+            zero_counts()
+            with _distill_spy(rec, draws_on_cpu=True, swap=swap):
+                _cli_call(lambda: dcli.main(_distill_narrow_argv(
+                    df, task, out), device=dev))
+            if name == "card":
+                counts[f"parity_{task}"] = read_counts()
+            runs[name] = (rec["metrics"], load_msgpack(out))
+        (cm, ct), (sm, st), (km, kt) = (runs[n] for n in
+                                        ("cpu", "spread", "card"))
+        steps = []
+        for i, (a, s, k) in enumerate(zip(cm, sm, km)):
+            e_card = max(abs(k[x] / v - 1) for x, v in a.items())
+            e_cpu = max(abs(s[x] / v - 1) for x, v in a.items())
+            steps.append(f"{e_card:.2e} ({e_cpu:.2e})")
+            ok &= a.keys() == k.keys() and e_card <= (
+                1e-4 if i == 0 else 5 * e_cpu + 1e-2)
+        end = (_tree_rel_l2(kt, ct, ct), _tree_rel_l2(st, ct, ct))
+        ok &= len(km) == len(cm) == 2 and end[0] <= 5 * end[1] + 1e-3
+        lines.append(f"{task}: l1 by step {', '.join(steps)}; end student "
+                     f"{end[0]:.2e} ({end[1]:.2e})")
+    log(f"distill (a1) narrow main(argv), card vs CPU, f32 (the CPU's "
+        f"spread in brackets): {'; '.join(lines)}: {ok} ({card})")
+    if not ok:
+        raise AssertionError("distill_enhancer: card against CPU")
+    return counts
+
+
+def _distill_full(card, df):
+    """(b) `distill_enhancer.main(argv)` at full width in bf16, as a user
+    runs it: background at the CLI's defaults (hq 256, batch 8, student
+    64 x 32, x4) on the full-size RealESRGAN_x4plus teacher, face at
+    --hq_size 512 (student x2 reading 256) on GFPGANv1.4; 20 steps each,
+    --save_every 10. Each: every l1 finite, every student tensor moved,
+    S2 launched exactly DISTILL_S2 times a step (forward and dx apart),
+    the msgpack written, equal to the trained student, and served by
+    `srvgg_from_variables` + `SRVGGStudentSeat` on a bf16 batch; the
+    median student step and teacher pass (synced), the median iteration
+    (host clock between step ends: batch decode, degrade and teacher
+    included), peak memory. Returns each run's launch counts and
+    timings."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.cli import distill_enhancer as dcli
+    from ghost_tpu_torch.convert.from_jax import (flax_variables,
+                                                  load_flax_variables)
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY
+    from ghost_tpu_torch.models.sr.srvgg import (SRVGGStudentSeat,
+                                                 srvgg_from_variables)
+
+    d, c = df["dir"], DISTILL
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    counts, out = {}, {}
+    for task, data, teacher in (("background", df["faces"], df["rrdb"]),
+                                ("face", df["faces512"], df["gfpgan"])):
+        hq = c["hq"][task]
+        path = f"{d}/student_{task}.msgpack"
+        argv = ["--task", task, "--dataset_path", data, "--teacher_path",
+                teacher, "--out", path, "--hq_size", str(hq), "--steps",
+                str(c["steps"]), "--save_every", "10", "--log_every", "5"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {}
+        zero_counts()
+        with _distill_spy(rec):
+            wall, lines, _ = _cli_call(lambda: dcli.main(argv))
+        counts[task] = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        student = rec["student"]
+        student = getattr(student, "student_mod", student)
+        moved = sum(not torch.equal(a, b) for a, b in zip(
+            rec["start"], rec["student"].parameters()))
+        n_params = len(rec["start"])
+        saved = load_msgpack(path)
+        written = _flat(flax_variables(student))
+        same = _flat(saved).keys() == written.keys() and all(
+            np.array_equal(v, written[k]) for k, v in _flat(saved).items())
+        dev = next(student.parameters()).device
+        seat = SRVGGStudentSeat(load_flax_variables(srvgg_from_variables(
+            saved, policy=DEFAULT_POLICY), saved)).to(dev).eval()
+        g = torch.Generator(device=dev).manual_seed(22)
+        y = torch.rand(8, 256, 256, 3, generator=g, device=dev) * 2 - 1
+        with torch.no_grad():
+            served = seat(y)
+        # iterations 2.. (the first two carry the teacher's and the
+        # student's first calls)
+        iters = [(b - a) * 1e3 for a, b in zip(rec["ends"][1:],
+                                               rec["ends"][2:])] or [0.0]
+        l1 = [m["l1"] for m in rec["metrics"]]
+        s2_ok = (rec["fwd"] == [DISTILL_S2["forward"]] * c["steps"]
+                 and rec["dx"] == [DISTILL_S2["dx"]] * c["steps"])
+        out[task] = (med(rec["step_ms"]), med(rec["teacher_ms"][2:]
+                                              or rec["teacher_ms"]),
+                     med(iters), peak, wall)
+        log(f"distill (b) {task} at full width, bf16, {c['steps']} steps: "
+            f"wall {wall:.2f} s; student step "
+            f"{', '.join(f'{t:.1f}' for t in rec['step_ms'])} ms (median "
+            f"{out[task][0]:.2f}), teacher pass median {out[task][1]:.2f} "
+            f"ms, iteration median {out[task][2]:.2f} ms; peak memory "
+            f"{peak:.2f} GiB; l1 {l1[0]:.5f} -> {l1[-1]:.5f}; student "
+            f"tensors moved {moved} of {n_params}; S2 per step forward "
+            f"{sorted(set(rec['fwd']))}, dx {sorted(set(rec['dx']))} "
+            f"(pinned {DISTILL_S2['forward']} + {DISTILL_S2['dx']}); saved "
+            f"== trained {same}; served by the seat "
+            f"{tuple(served.shape)} {served.dtype}; launches "
+            f"{counts[task]} ({card})")
+        if not (all(math.isfinite(v) for v in l1) and len(l1) == c["steps"]
+                and moved == n_params and s2_ok and same
+                and bool(torch.isfinite(served).all())
+                and tuple(served.shape) == (8, 256, 256, 3)
+                and any(ln.startswith("saved student") for ln in lines)):
+            raise AssertionError(f"distill_enhancer {task} at full width")
+        del rec, seat, student
+    return counts, out
+
+
+@contextlib.contextmanager
+def _extras_spy(rec, swap=False):
+    """Spy on the port's auxiliary trainers while `main` runs: the
+    trained module and its starting parameters and buffers, per step the
+    loss terms and the synced step ms; with `swap`, each batch's samples
+    in the other order (the CPU's own spread)."""
+    import torch
+
+    from ghost_tpu_torch.cli import train_extras as xcli
+    from ghost_tpu_torch.train import extra_trainers as xt
+
+    names = ("make_discriminator_pretrain_step",
+             "make_upsampler_finetune_step", "make_mask_train_step")
+    reals = {n: getattr(xt, n) for n in names}
+    real_batches = xcli._epoch_batches
+    rec.update(metrics=[], step_ms=[])
+
+    def wrap(make):
+        def wrapped(mod, *a, **kw):
+            step, opt = make(mod, *a, **kw)
+            rec["module"] = mod
+            rec["start"] = {k: v.detach().clone()
+                            for k, v in mod.state_dict().items()}
+
+            def spy(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m = step(*args)
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+                m = m if isinstance(m, dict) else {"loss": m}
+                rec["metrics"].append({k: float(v) for k, v in m.items()})
+                return m if len(m) > 1 else m["loss"]
+
+            return spy, opt
+
+        return wrapped
+
+    def batches(*a):
+        for b in real_batches(*a):
+            yield {k: v.flip(0) for k, v in b.items()} if swap else b
+
+    try:
+        for n in names:
+            setattr(xt, n, wrap(reals[n]))
+        xcli._epoch_batches = batches
+        yield rec
+    finally:
+        for n in names:
+            setattr(xt, n, reals[n])
+        xcli._epoch_batches = real_batches
+
+
+def _extras_argv(df, mode, run, narrow):
+    argv = ["--mode", mode, "--dataset_path", df["faces"], "--run_name", run,
+            "--allow_random_weights", "1", "--show_step", "1"]
+    if narrow:
+        # tests/test_train_extras_cli.py's flags; ArcFace tiny and random
+        # (the default path is absent in the run's directory)
+        argv += ["--G_path", df["narrow_G"], "--batch_size", "2",
+                 "--max_steps", "2", "--width", "0.0625", "--arcface_depth",
+                 "tiny", "--bf16", "", "--num_blocks", "1", "--num_workers",
+                 "1"]
+    else:
+        argv += ["--arcface_path", df["arc"], "--max_steps",
+                 str(EXTRAS["steps"])]
+    return argv + {"discriminator": ["--D_path", df["D"]],
+                   "upsampler": ["--sr_path", df["sr"], "--sr_ngf",
+                                 str(EXTRAS["sr_ngf"])],
+                   "mask": ["--mask_source", df["masks"]]}[mode]
+
+
+def _extras_parity(card, df):
+    """(a2) `train_extras.main(argv)` in each mode at
+    tests/test_train_extras_cli.py's narrow flags (G width 1/16 from
+    `.pth`, tiny ArcFace, batch 2, f32, 2 steps; the CLI's full-width D
+    from `.pth`, LIPSPADE ngf 48) on the card against `main(argv,
+    device="cpu")`, beside the CPU's own spread (each batch's samples in
+    the other order), with phase 21's bounds: step 0's loss terms 1e-4
+    relative, step 1's within 5x the spread + 1e-2, the written msgpack
+    (relative L2) within 5x the spread + 1e-3. Returns the card runs'
+    launch counts."""
+    from ghost_tpu_torch.cli import train_extras as xcli
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+
+    d = df["dir"]
+    counts, ok, lines = {}, True, []
+    for mode in ("discriminator", "upsampler", "mask"):
+        runs = {}
+        for name, dev, swap in (("card", "cuda", False), ("cpu", "cpu", False),
+                                ("spread", "cpu", True)):
+            run = f"a_{name}"
+            rec = {}
+            zero_counts()
+            with _extras_spy(rec, swap), contextlib.chdir(d):
+                _cli_call(lambda: xcli.main(_extras_argv(df, mode, run, True),
+                                            device=dev))
+            if name == "card":
+                counts[f"parity_{mode}"] = read_counts()
+            runs[name] = (rec["metrics"],
+                          load_msgpack(f"{d}/{run}_{mode}.msgpack"))
+        (cm, ct), (sm, st), (km, kt) = (runs[n] for n in
+                                        ("cpu", "spread", "card"))
+        steps = []
+        for i, (a, s, k) in enumerate(zip(cm, sm, km)):
+            e_card = max(abs(k[x] / v - 1) for x, v in a.items())
+            e_cpu = max(abs(s[x] / v - 1) for x, v in a.items())
+            steps.append(f"{e_card:.2e} ({e_cpu:.2e})")
+            ok &= a.keys() == k.keys() and e_card <= (
+                1e-4 if i == 0 else 5 * e_cpu + 1e-2)
+        end = (_tree_rel_l2(kt, ct, ct), _tree_rel_l2(st, ct, ct))
+        ok &= len(km) == len(cm) == 2 and end[0] <= 5 * end[1] + 1e-3
+        lines.append(f"{mode}: losses by step {', '.join(steps)}; written "
+                     f"tree {end[0]:.2e} ({end[1]:.2e})")
+    log(f"extras (a2) narrow main(argv), card vs CPU, f32 (the CPU's "
+        f"spread in brackets): {'; '.join(lines)}: {ok} ({card})")
+    if not ok:
+        raise AssertionError("train_extras: card against CPU")
+    return counts
+
+
+def _extras_full(card, df):
+    """(c) `train_extras.main(argv)` at full width as a user runs it (the
+    CLI's defaults: bf16, batch 16, AEI-Net unet 2 blocks, iresnet100
+    from `backbone.pth`, D n_layers 5 x 3 scales, LIPSPADE ngf 48),
+    EXTRAS["steps"] steps a mode, chained: upsampler from phase 17's G
+    `.pth`, mask from the upsampler's msgpack, discriminator from the
+    mask's msgpack through --G_path (and D from `.pth`). Each: every loss
+    finite, every tensor the mode trains moved (and G's BN statistics in
+    the G modes), the G a run read through --G_path equal to the msgpack
+    before it bit for bit, the written msgpack equal to the trained
+    module; the median synced step, peak memory. Returns each run's
+    launch counts and timings."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.cli import train_extras as xcli
+    from ghost_tpu_torch.convert.from_jax import flax_variables
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+
+    d = df["dir"]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    counts, out, g_path = {}, {}, df["G"]
+    for mode in ("upsampler", "mask", "discriminator"):
+        argv = _extras_argv(df, mode, "full", False) + ["--G_path", g_path]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec, loaded = {}, {}
+        real_load = xcli._load_gen
+
+        def load_gen(*a, **kw):
+            gen = real_load(*a, **kw)
+            loaded["g"] = flax_variables(gen)
+            return gen
+
+        zero_counts()
+        xcli._load_gen = load_gen
+        try:
+            with _extras_spy(rec), contextlib.chdir(d):
+                wall, lines, _ = _cli_call(lambda: xcli.main(argv))
+        finally:
+            xcli._load_gen = real_load
+        counts[mode] = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mod = rec["module"]
+        end = mod.state_dict()
+        same = [torch.equal(v, end[k]) for k, v in rec["start"].items()]
+        path = f"{d}/full_{mode}.msgpack"
+        saved = _flat(load_msgpack(path))
+        written = _flat(flax_variables(mod))
+        if mode == "discriminator":
+            written = _flat({"params": flax_variables(mod)["params"]})
+        equal = saved.keys() == written.keys() and all(
+            np.array_equal(saved[k], written[k]) for k in saved)
+        reread = True
+        if g_path.endswith(".msgpack"):
+            before = _flat(load_msgpack(g_path))
+            got = _flat(loaded["g"])
+            reread = before.keys() == got.keys() and all(
+                np.array_equal(before[k], got[k]) for k in before)
+
+        bad = [m for m in rec["metrics"] for v in m.values()
+               if not math.isfinite(v)]
+        out[mode] = (med(rec["step_ms"]), peak, wall)
+        log(f"extras (c) {mode} at full width, bf16, batch 16: wall "
+            f"{wall:.2f} s; step {', '.join(f'{t:.1f}' for t in rec['step_ms'])} "
+            f"ms (median {out[mode][0]:.1f}); peak memory {peak:.2f} GiB; "
+            f"losses {[round(m['loss'], 4) for m in rec['metrics']]}; "
+            f"tensors unchanged {sum(same)} of {len(same)}; --G_path "
+            f"{Path(g_path).name} read bit for bit {reread}; written == "
+            f"trained {equal}; launches {counts[mode]} ({card})")
+        if bad or any(same) or not (equal and reread) \
+                or len(rec["metrics"]) != EXTRAS["steps"] \
+                or not any(ln.startswith("saved ") for ln in lines):
+            raise AssertionError(f"train_extras {mode} at full width")
+        if mode != "discriminator":
+            g_path = path
+        del rec, mod
+    return counts, out
+
+
+def phase_distill(card, files):
+    """Phase 22: the enhancer-distillation CLI (`python -m
+    ghost_tpu_torch.cli.distill_enhancer`) and the auxiliary-trainer CLI
+    (`python -m ghost_tpu_torch.cli.train_extras`) through `main(argv)`:
+    (a) card against CPU at the narrow configs, (b) distillation at full
+    width with S2 counted a step, (c) the three trainer modes at full
+    width. The trainers run none of the table's kernels
+    (`fused_aad=False`, cuDNN convs): their counts must read 0. Returns
+    the distillation runs' counts and the trainers' counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        df = distill_files(d, files)
+        distill = _distill_parity(card, df)
+        full, d_out = _distill_full(card, df)
+        distill.update(full)
+        extras = _extras_parity(card, df)
+        full, x_out = _extras_full(card, df)
+        extras.update(full)
+    torch.cuda.empty_cache()
+    launched = {run: c for run, c in extras.items() if any(c.values())}
+    wrong = {run: {k: v for k, v in c.items() if v and k != "conv3x3"}
+             for run, c in distill.items()}
+    wrong = {run: c for run, c in wrong.items() if c}
+    log(f"distill: phase 22 in {time.perf_counter() - t0:.1f} s; distill "
+        f"student step / teacher pass / iteration ms, peak GiB: "
+        + "; ".join(f"{n} {v[0]:.2f} / {v[1]:.2f} / {v[2]:.2f}, {v[3]:.2f}"
+                    for n, v in d_out.items())
+        + "; trainer step ms, peak GiB: "
+        + "; ".join(f"{n} {v[0]:.1f}, {v[1]:.2f}" for n, v in x_out.items())
+        + f"; trainer runs that launched a kernel of the table: {launched}; "
+        f"distill runs that launched another kernel than S2: {wrong} "
+        f"({card})")
+    if launched or wrong:
+        raise AssertionError(f"phase 22 launched kernels: {launched} {wrong}")
+    return distill, extras
+
+
 def main(argv):
     import torch
 
@@ -3765,6 +4393,7 @@ def main(argv):
         cli.update(enhance_cli)
         phase_gan(device, card)
         train_cli = phase_train_cli(card, files)
+        distill, extras = phase_distill(card, files)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3787,7 +4416,13 @@ def main(argv):
                            if any(c[name] for c in runs.values())},
                         # each train CLI run of phase 21 (all 0)
                         "train_cli_launches": {run: c[name] for run, c
-                                               in train_cli.items()}})
+                                               in train_cli.items()},
+                        # each distillation run of phase 22 (S2 only)
+                        # and each auxiliary-trainer run (all 0)
+                        "distill_launches": {run: c[name] for run, c
+                                             in distill.items()},
+                        "train_extras_launches": {run: c[name] for run, c
+                                                  in extras.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -369,12 +369,13 @@ def main(argv=None, device="cuda") -> None:
             from ghost_tpu_torch.models.sr.generator import LIPSPADEGenerator
             from ghost_tpu_torch.train.distill import UpsampledTeacher
             from ghost_tpu_torch.train.extra_trainers import (
-                load_lipspade_vars, sr_upscale_fn)
+                load_lipspade_vars, sr_upscale_apply)
 
             sr = load_lipspade_vars(
                 LIPSPADEGenerator(ngf=args.sr_ngf, policy=policy),
                 args.sr_path, args.sr_ngf, warn_context="--teacher_upsample")
-            teacher = UpsampledTeacher(teacher, sr_upscale_fn(sr.to(device)))
+            teacher = UpsampledTeacher(teacher,
+                                       sr_upscale_apply(sr.to(device)))
 
     def batch_iter():
         # fresh iterator per epoch: a one-shot generator here would

@@ -1,4 +1,4 @@
-"""Weight bridge: a flax variables tree -> the port's modules.
+"""Weight bridge: a flax variables tree -> the port's modules, and back.
 
 Leaves are numpy (or array-like) values. Paths are the flax module
 names, which the port's modules mirror as attribute names; the wrapper
@@ -34,6 +34,17 @@ levels that `ghost_tpu/nn/layers.py` adds (`Conv_0`, `Dense_0`,
 
 Collections read: params, batch_stats, spectral. The bridge is strict: every port tensor is filled exactly once and
 every flax leaf is used exactly once, or it raises.
+
+`flax_variables(module)` is its exact inverse: every parameter and
+buffer of the module written once, as a float32 numpy leaf, under its
+flax path (the wrapper level `Conv_0` restored under an `nn.layers.Conv`
+or `Conv3x3`, `Dense_0` under a `Dense`, `BatchNorm_0` under a
+`BatchNorm`, except for the layers the JAX modules build as bare flax
+layers, `_BARE_LAYERS`), its layout turned back (OIHW -> HWIO, Dense
+transposed back, ConvTranspose's and Conv3x3's kernels and bare
+parameters as they are), BatchNorm's running statistics in
+`batch_stats` and the spectral-norm pairs in `spectral`. What
+`save_msgpack` writes of it is what the JAX package's modules read.
 """
 
 from __future__ import annotations
@@ -44,17 +55,23 @@ import numpy as np
 import torch
 from torch import nn
 
+from ghost_tpu_torch.models.arcface import IResNet
+from ghost_tpu_torch.models.landmark import Landmark106
 from ghost_tpu_torch.models.scrfd_v1e import SCRFDHeadShared
 from ghost_tpu_torch.models.sr.generator import SimplifiedLIP
 from ghost_tpu_torch.models.sr.gfpgan import (ModulatedConv, StyleConv,
                                               StyleGAN2CSFT, ToRGB)
-from ghost_tpu_torch.models.sr.spade import SpectralConv
+from ghost_tpu_torch.models.sr.spade import SPADE, SpectralConv
 from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
 from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, Conv3x3, ConvTranspose,
                                        Dense, GroupNorm, PReLU)
-from ghost_tpu_torch.nn.modules import MultiheadAttention, WeightNormDense
+from ghost_tpu_torch.nn.modules import (MLP, MultiheadAttention,
+                                        WeightNormDense)
 
 _WRAPPERS = frozenset({"Conv_0", "Dense_0", "BatchNorm_0"})
+# the wrapper level flax's tree holds under each of nn.layers' layers
+_WRAPPER_OF = {Conv: "Conv_0", Conv3x3: "Conv_0", Dense: "Dense_0",
+               BatchNorm: "BatchNorm_0"}
 
 _LEAF_MAP = {
     (Conv, "kernel"): ("weight", lambda v: v.transpose(3, 2, 0, 1)),
@@ -83,6 +100,21 @@ _LEAF_MAP = {
     (SpectralConv, "v"): ("v", None),
     (ModulatedConv, "weight"): ("weight", lambda v: v.transpose(3, 2, 0, 1)),
 }
+# layers the JAX modules build as bare flax layers (no wrapper level):
+# (parent module, attribute); and every `dense{i}` of an MLP
+_BARE_LAYERS = frozenset(
+    [(SPADE, n) for n in ("pfn", "mlp_shared", "mlp_gamma", "mlp_beta")]
+    + [(MultiheadAttention, n) for n in ("q_proj", "k_proj", "v_proj",
+                                         "out_proj")]
+    + [(IResNet, "features"), (Landmark106, "fc")])
+# the inverse of each layout change of _LEAF_MAP
+_UNDO = {(Conv, "kernel"): lambda v: v.transpose(2, 3, 1, 0),
+         (ConvTranspose, "kernel"): lambda v: v.transpose(2, 3, 0, 1),
+         (Dense, "kernel"): lambda v: v.T,
+         (SpectralConv, "kernel"): lambda v: v.transpose(2, 3, 1, 0),
+         (ModulatedConv, "weight"): lambda v: v.transpose(2, 3, 1, 0)}
+_COLLECTION = {"mean": "batch_stats", "var": "batch_stats", "u": "spectral",
+               "v": "spectral"}
 # modules whose own bare parameters are flax leaves of the same name
 _BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP, SCRFDHeadShared, StyleConv,
                 ToRGB, StyleGAN2CSFT)
@@ -140,3 +172,53 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
         raise KeyError(f"port tensors left unfilled: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
     return module
+
+
+def _is_bare(module: nn.Module, mod_name: str) -> bool:
+    """Whether the layer at `mod_name` mirrors a bare flax layer (no
+    wrapper level in the tree)."""
+    parent_name, _, child = mod_name.rpartition(".")
+    parent = module.get_submodule(parent_name)
+    return ((type(parent), child) in _BARE_LAYERS
+            or (isinstance(parent, MLP) and child.startswith("dense")))
+
+
+def _flax_leaf(mod: nn.Module, attr: str):
+    """(flax leaf name, layout fn) of port tensor `attr` of `mod`."""
+    for (kind, leaf), (name, _) in _LEAF_MAP.items():
+        if type(mod) is kind and name == attr:
+            return leaf, _UNDO.get((kind, leaf))
+    if isinstance(mod, _BARE_PARAMS) and attr in dict(
+            mod.named_parameters(recurse=False)):
+        return attr, None
+    raise KeyError(f"{type(mod).__name__}.{attr} has no flax leaf")
+
+
+def flax_variables(module: nn.Module) -> dict:
+    """The flax variables tree of `module`, the inverse of
+    `load_flax_variables`: {"params": ..., and "batch_stats" /
+    "spectral" where the module holds them}, float32 numpy leaves."""
+    tree: dict = {}
+    tensors = list(module.named_parameters()) + list(module.named_buffers())
+    for key, tensor in tensors:
+        mod_name, _, attr = key.rpartition(".")
+        mod = module.get_submodule(mod_name)
+        leaf, fn = _flax_leaf(mod, attr)
+        collection = "params"
+        if isinstance(mod, (BatchNorm, SpectralConv)):
+            collection = _COLLECTION.get(leaf, "params")
+        path = mod_name.split(".") if mod_name else []
+        if type(mod) in _WRAPPER_OF and not _is_bare(module, mod_name):
+            path.append(_WRAPPER_OF[type(mod)])
+        # a copy: the tree must not alias the module's tensors
+        arr = tensor.detach().to("cpu", torch.float32, copy=True).numpy()
+        if fn is not None:
+            arr = fn(arr)
+        node = tree.setdefault(collection, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        if leaf in node:
+            raise KeyError(f"flax leaf {collection}/{'/'.join(path + [leaf])} "
+                           f"written twice (again by {key})")
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

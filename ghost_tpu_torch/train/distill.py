@@ -70,7 +70,7 @@ class TorchTeacher:
 class UpsampledTeacher:
     """--teacher_upsample (reference train.py:228-229): the teacher's
     outputs go through the SR upscaler before the residual loss
-    (`extra_trainers.sr_upscale_fn` over LIPSPADE is the CLI's)."""
+    (`extra_trainers.sr_upscale_apply` over LIPSPADE is the CLI's)."""
 
     def __init__(self, teacher, upscale_fn):
         self.teacher = teacher

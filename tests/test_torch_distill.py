@@ -273,7 +273,7 @@ def test_upsampled_teacher_matches_jax(graphs, sr_files, tmp_path, capsys):
                                    path, 4)
     assert not any(p.requires_grad for p in sr.parameters())
     got = tdist.UpsampledTeacher(NativeInswapperTeacher(graphs["emap"], "cpu"),
-                                 textra.sr_upscale_fn(sr))(xt, z)["teacher_y"]
+                                 textra.sr_upscale_apply(sr))(xt, z)["teacher_y"]
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert float(np.abs(got.numpy() - want).max()) <= 1e-5
     save_msgpack(tmp_path / "sr.msgpack", jax.tree.map(np.asarray, jvars))
