@@ -207,14 +207,37 @@ exits non-zero without its result lines:
               msgpacks: finite losses, the trained tensors moved, the
               msgpacks bit for bit, step ms, peak memory, every count 0
 
+ 23. sr/masks the SR-training library and the mask-target and
+              preprocessing CLIs: (a0) card against CPU in f32 at
+              tests/test_torch_sr_train.py's narrow configs (a Pix2PixSR
+              ngf 4 G + D step at 64 px with VGG19; SubAdd's and
+              Contrasive's steps on LIPEncoder(4, 3)); (a)
+              Pix2PixSR(SRConfig()) train mode at 256 px, batch 4, VGG19
+              on, bf16 and f32: 1 warm + 5 timed G + D steps (every G
+              and D tensor, running statistic and spectral pair moved),
+              a HiFaceGANGenerator(ngf=48) forward, SubAdd and
+              Contrasive steps on LIPEncoder(48, 5) at batch 8: step
+              ms, peak memory; (b0) the tests' tiny SAM card vs CPU;
+              (b) `precompute_masks.main(argv)`: hull at --batch_size 32
+              on 64 seeded crops with a templated Landmark106 msgpack
+              (ms a crop, peak; 8 crops card vs CPU), SAM vit_h through
+              a seeded full-size `.pth` in the upstream layout on 16
+              crops (load s, ms a crop, peak) and its image encoder
+              against the bf16 bound; (c0) `preprocess.main(argv)`
+              celeba on a narrow f32 pipeline, card vs CPU; (c) celeba
+              --max_darken 2, vgg (2 folders x 4) and gender on seeded
+              1080p jpgs with a templated full-width detector: ms an
+              image, crop_faces ms; every count 0
+
 Each path (5, 8, 9, 13, 14, each CLI run of 17, 18 and 19, each enhancer
-chunk of 19, each train run of 20, each train CLI run of 21 and each CLI
-run of 22) runs with every launch count set to 0 just before it and
-read just after; the counts of 5, 8, 9 and 13 go into the kernels line
-as `launches`, those of 17 and 19's CLI runs as `cli_launches`, those of
-18 as `route_launches`, those of 19's chunks as `enhance_launches`, those
-of 21 as `train_cli_launches`, those of 22 as `distill_launches` and
-`train_extras_launches`.
+chunk of 19, each train run of 20, each train CLI run of 21, each CLI
+run of 22 and each run of 23) runs with every launch count set to 0
+just before it and read just after; the counts of 5, 8, 9 and 13 go
+into the kernels line as `launches`, those of 17 and 19's CLI runs as
+`cli_launches`, those of 18 as `route_launches`, those of 19's chunks
+as `enhance_launches`, those of 21 as `train_cli_launches`, those of 22
+as `distill_launches` and `train_extras_launches`, those of 23 as
+`sr_masks_launches`.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -395,6 +418,15 @@ TRAIN_CLI = dict(images=128, identities=8, size=256, steps=12, fan_stacks=4,
 DISTILL = dict(steps=20, hq={"background": 256, "face": 512})
 DISTILL_S2 = {"forward": 34, "dx": 33}
 EXTRAS = dict(images=128, steps=6, sr_ngf=48)
+
+# the SR-training and mask-target phase (23): Pix2PixSR at SRConfig()'s
+# widths (ngf 48, ndf 64) on 256-px batches of 4, the encoder pretraining
+# (LIPEncoder(ngf, 5)) at batch 8, timed steps after a warm one; the hull
+# masks' crops and --batch_size, SAM's crops and --sam_preset; the
+# preprocessing CLI's 1080p images (flat, and folders x images)
+SR23 = dict(hw=256, batch=4, steps=5, pre_batch=8, ngf=48, ndf=64)
+MASKS = dict(crops=64, batch=32, sam_crops=16, preset="vit_h")
+PREP = dict(hw=(1080, 1920), flat=4, dirs=2, per_dir=4)
 
 # each kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -4352,6 +4384,772 @@ def phase_distill(card, files):
     return distill, extras
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the SR-training library and the mask-target and preprocessing
+# CLIs
+# ---------------------------------------------------------------------------
+
+
+def _sr_vgg(device, policy, seed=0):
+    """`vgg_apply` over a seeded full-width VGG19 (frozen): [-1, 1] NHWC
+    -> the 5 relu slices, as the reference's VGGLoss reads them."""
+    import torch
+
+    from ghost_tpu_torch.models.sr.vgg import (VGG19Features,
+                                               imagenet_normalize_pm1)
+    from ghost_tpu_torch.nn.layers import init_weights
+
+    vgg = init_weights(VGG19Features(policy=policy),
+                       torch.Generator().manual_seed(seed))
+    vgg = vgg.to(device).eval().requires_grad_(False)
+    return lambda x: vgg(imagenet_normalize_pm1(x))
+
+
+def _sr_batches(device, n, batch, hw, seed):
+    """n seeded (degraded, real) pairs of (batch, hw, hw, 3) in [-1, 1]:
+    real smooth images, degraded = real downscaled 4x and back plus
+    noise."""
+    import torch
+
+    from ghost_tpu_torch.nn.layers import resize
+
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        low = torch.rand(batch, hw // 16, hw // 16, 3, generator=g) * 2 - 1
+        real = resize(low, (hw, hw), method="bilinear")
+        deg = resize(resize(real, (hw // 4, hw // 4), method="area"),
+                     (hw, hw), method="bilinear")
+        deg = deg + 0.05 * torch.randn(deg.shape, generator=g)
+        out.append((deg.clamp(-1, 1).to(device), real.to(device)))
+    return out
+
+
+def _sr_steps(model, state, batches):
+    """One G step then one D step per batch; per step (g ms, d ms,
+    metrics with the D loss as floats), synced."""
+    import torch
+
+    g_step, d_step = model.make_steps()
+    rows = []
+    for deg, real in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met, gen = g_step(state, deg, real)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, ld = d_step(state, deg, gen, real)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rows.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                     {**{k: float(v) for k, v in met.items()},
+                      "D": float(ld)}))
+    return state, rows
+
+
+def _sr_full(card, device, policy_name):
+    """(a) Pix2PixSR(SRConfig()) with train=True, VGG19 on: 1 warm and
+    SR23["steps"] timed G + D steps at 256 px, batch 4: finite losses,
+    every G and D tensor moved, G's running statistics and spectral
+    pairs moved; step ms, peak memory."""
+    import torch
+
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from ghost_tpu_torch.models.sr import pix2pix
+
+    policy = {"bf16": DEFAULT_POLICY, "f32": FULL_PRECISION}[policy_name]
+    c = SR23
+    torch.cuda.empty_cache()
+    model = pix2pix.Pix2PixSR(pix2pix.SRConfig(ngf=c["ngf"], ndf=c["ndf"]),
+                              policy=policy,
+                              vgg_apply=_sr_vgg(device, policy), train=True)
+    state = model.init(torch.Generator().manual_seed(23), device)
+    batches = _sr_batches(device, 1 + c["steps"], c["batch"], c["hw"], 23)
+    state, _ = _sr_steps(model, state, batches[:1])
+    before = {k: v.detach().clone() for k, v in
+              list(state.gen.state_dict().items())
+              + [("D." + k, v) for k, v in state.disc.state_dict().items()]}
+    torch.cuda.reset_peak_memory_stats()
+    state, rows = _sr_steps(model, state, batches[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = dict(state.gen.state_dict())
+    after.update({"D." + k: v for k, v in state.disc.state_dict().items()})
+    still = [k for k, v in before.items() if torch.equal(v, after[k])]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    g_ms, d_ms = med([r[0] for r in rows]), med([r[1] for r in rows])
+    finite = all(math.isfinite(v) for r in rows for v in r[2].values())
+    log(f"sr (a) Pix2PixSR {policy_name} at {c['hw']} px, batch "
+        f"{c['batch']}, VGG19 on: G step {', '.join(f'{r[0]:.1f}' for r in rows)}"
+        f" ms (median {g_ms:.1f}), D step "
+        f"{', '.join(f'{r[1]:.1f}' for r in rows)} ms (median {d_ms:.1f}); "
+        f"peak memory {peak:.2f} GiB; losses {rows[-1][2]}; tensors "
+        f"unchanged {len(still)} of {len(before)} ({card})")
+    if not finite or still or len(rows) != c["steps"]:
+        raise AssertionError(f"Pix2PixSR {policy_name}: finite {finite}, "
+                             f"unchanged {still[:8]}")
+    g_step = model.make_steps()[0]
+    probe = lambda: g_step(state, *batches[1])  # noqa: E731
+    return {"g_ms": g_ms, "d_ms": d_ms, "peak_gib": peak}, probe
+
+
+def _grad_rel(opt_a, mod_a, opt_b, mod_b):
+    """Relative L2 of module a's Adam first moments against module b's
+    (b1 = 0: the gradients)."""
+    def moments(opt, mod):
+        names = {id(p): n for n, p in mod.named_parameters()}
+        return {names[id(p)]: s["exp_avg"].double().cpu()
+                for p, s in opt.state.items()}
+
+    a, b = moments(opt_a, mod_a), moments(opt_b, mod_b)
+    num = sum(float((a[k] - v).square().sum()) for k, v in b.items())
+    return (num / sum(float(v.square().sum()) for v in b.values())) ** 0.5
+
+
+def _sr_parity(card, device):
+    """(a0) card against CPU in f32 at tests/test_torch_sr_train.py's
+    narrow configs, from one seeded state: a Pix2PixSR(ngf 4, ndf 4) G +
+    D step at 64 px, batch 2, VGG19 on (losses 1e-4 relative, G's and
+    D's whole gradients 5e-3 relative L2, the spectral pairs 1e-5, the
+    running statistics 1e-5 of their largest + 1e-6), and SubAdd's and
+    Contrasive's steps on LIPEncoder(4, 3) at 32 px (losses 1e-4
+    relative + SubAdd's feature-ratio term, the encoder's and the
+    adversary's gradients 5e-3). Returns the card's launch counts."""
+    import copy
+
+    import torch
+
+    from ghost_tpu_torch.core.precision import FULL_PRECISION as F32
+    from ghost_tpu_torch.models.sr import pix2pix, pretrain
+    from ghost_tpu_torch.models.sr.generator import LIPEncoder
+    from ghost_tpu_torch.nn.layers import init_weights
+
+    cpu = torch.device("cpu")
+    counts, lines, ok = {}, [], True
+    model = {dev: pix2pix.Pix2PixSR(pix2pix.SRConfig(ngf=4, ndf=4),
+                                    policy=F32, vgg_apply=_sr_vgg(dev, F32),
+                                    train=True) for dev in (cpu, device)}
+    base = model[cpu].init(torch.Generator().manual_seed(5), cpu)
+    batch = _sr_batches(cpu, 1, 2, 64, 5)
+    runs = {}
+    for name, dev in (("cpu", cpu), ("card", device)):
+        st = model[dev].init(None, dev, modules=tuple(
+            copy.deepcopy(m).to(dev) for m in (base.gen, base.disc)))
+        zero_counts()
+        st, rows = _sr_steps(model[dev], st, [tuple(t.to(dev)
+                                                    for t in batch[0])])
+        if name == "card":
+            counts["sr_parity"] = read_counts()
+        runs[name] = (st, rows[0][2])
+    (sc, mc), (sk, mk) = runs["cpu"], runs["card"]
+    e_loss = max(abs(mk[k] / v - 1) for k, v in mc.items())
+    e_g = _grad_rel(sk.g_opt, sk.gen, sc.g_opt, sc.gen)
+    e_d = _grad_rel(sk.d_opt, sk.disc, sc.d_opt, sc.disc)
+    bufs = dict(sc.gen.named_buffers())
+    # each buffer's error over its bound: 1e-5 for a (u, v) unit vector,
+    # 1e-5 of the largest value + 1e-6 for a running statistic
+    e_buf = max(float((b.cpu() - bufs[k]).abs().max())
+                / (1e-5 if k.endswith((".u", ".v"))
+                   else 1e-5 * float(bufs[k].abs().max()) + 1e-6)
+                for k, b in sk.gen.named_buffers())
+    ok &= e_loss <= 1e-4 and e_g <= 5e-3 and e_d <= 5e-3 and e_buf <= 1
+    lines.append(f"Pix2PixSR losses {e_loss:.2e}, G gradient {e_g:.2e}, D "
+                 f"gradient {e_d:.2e}, G's (u, v) and statistics at "
+                 f"{e_buf:.2f} of their bounds")
+
+    enc0 = init_weights(LIPEncoder(4, 3, F32),
+                        torch.Generator().manual_seed(6))
+    disc0 = init_weights(pretrain.NoiseIntensityPredictor(
+        sw=4, policy=F32, in_ch=32), torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(8)
+    clean = torch.rand(2, 32, 32, 3, generator=g) * 2 - 1
+    noisy = clean + 0.3 * torch.randn(clean.shape, generator=g)
+    label = torch.tensor([0.5, 0.25])
+    with torch.no_grad():
+        feats = enc0(torch.cat([clean, noisy]))
+    cond = float(feats.abs().max() / feats[:2].abs().min())
+    pre = {}
+    for name, dev in (("cpu", cpu), ("card", device)):
+        x = [t.to(dev) for t in (clean, noisy, label)]
+        # each step from the shared starting modules
+        mods = {k: tuple(copy.deepcopy(m).to(dev) for m in (enc0, disc0))
+                for k in ("e", "d")}
+        e_step, _, e_opt, _ = pretrain.make_subadd_pretrain_steps(*mods["e"])
+        _, d_step, _, d_opt = pretrain.make_subadd_pretrain_steps(*mods["d"])
+        cenc = copy.deepcopy(enc0).to(dev)
+        c_step, c_opt = pretrain.make_contrasive_pretrain_step(cenc)
+        zero_counts()
+        met = {**e_step(x[0], x[1]), **d_step(*x),
+               "contrasive": c_step(x[0], x[1])}
+        if name == "card":
+            counts["pretrain_parity"] = read_counts()
+        pre[name] = ({k: float(v) for k, v in met.items()},
+                     [(e_opt, mods["e"][0]), (d_opt, mods["d"][1]),
+                      (c_opt, cenc)])
+    (mc, oc), (mk, ocard) = pre["cpu"], pre["card"]
+    e_loss = max(abs(mk[k] / v - 1) for k, v in mc.items())
+    e_grads = [_grad_rel(*a, *b) for a, b in zip(ocard, oc)]
+    ok &= e_loss <= 1e-4 + 1e-6 * cond and max(e_grads) <= 5e-3
+    lines.append(f"pretraining losses {e_loss:.2e} (feature ratio "
+                 f"{cond:.1f}), encoder / adversary / contrasive encoder "
+                 f"gradients {', '.join(f'{e:.2e}' for e in e_grads)}")
+    log(f"sr (a0) narrow configs, card vs CPU, f32: {'; '.join(lines)}: "
+        f"{ok} ({card})")
+    if not ok:
+        raise AssertionError("the SR-training library: card against CPU")
+    return counts
+
+
+def _hifacegan(card, device):
+    """(a) HiFaceGANGenerator(ngf=48) at 256 px, batch 4, bf16, train
+    mode (batch statistics: seeded running statistics would let the
+    activations grow without bound), its state kept: warm ms, peak
+    memory."""
+    import torch
+
+    from ghost_tpu_torch.models.sr.generator import HiFaceGANGenerator
+    from ghost_tpu_torch.nn.layers import frozen_batch_stats, init_weights
+
+    torch.cuda.empty_cache()
+    gen = init_weights(HiFaceGANGenerator(ngf=SR23["ngf"], train=True),
+                       torch.Generator().manual_seed(9)).to(device)
+    x = _sr_batches(device, 1, SR23["batch"], SR23["hw"], 9)[0][0]
+    with torch.no_grad(), frozen_batch_stats(gen):
+        gen(x)
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_one(lambda: gen(x), 5, device)
+        y = gen(x)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok = bool(torch.isfinite(y).all()) and tuple(y.shape) == tuple(x.shape)
+    log(f"sr (a) HiFaceGANGenerator(ngf={SR23['ngf']}) bf16 forward, batch "
+        f"{SR23['batch']} at {SR23['hw']} px: {ms:.2f} ms, peak "
+        f"{peak:.2f} GiB, output {tuple(y.shape)} finite {ok} ({card})")
+    if not ok:
+        raise AssertionError("HiFaceGAN forward")
+    return {"ms": ms, "peak_gib": peak}
+
+
+def _pretrain_full(card, device):
+    """(a) SubAdd (encoder, then adversary) and Contrasive steps on
+    LIPEncoder(ngf=48, n_2xdown=5) in bf16 at 256 px, batch 8 (the
+    encoder's 8x8 map of 768 channels; the adversary a
+    NoiseIntensityPredictor on it): 1 warm and SR23["steps"] timed steps
+    each, finite losses, the trained tensors moved; median ms, peak."""
+    import torch
+
+    from ghost_tpu_torch.models.sr import pretrain
+    from ghost_tpu_torch.models.sr.generator import LIPEncoder
+    from ghost_tpu_torch.nn.layers import init_weights
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(10)
+    ngf, hw = SR23["ngf"], SR23["hw"]
+    enc = init_weights(LIPEncoder(ngf, 5), gen).to(device)
+    disc = init_weights(pretrain.NoiseIntensityPredictor(
+        sw=hw // 32, in_ch=16 * ngf), gen).to(device)
+    cenc = init_weights(LIPEncoder(ngf, 5), gen).to(device)
+    e_step, d_step, _, _ = pretrain.make_subadd_pretrain_steps(enc, disc)
+    c_step, _ = pretrain.make_contrasive_pretrain_step(cenc)
+    b = SR23["pre_batch"]
+    g = torch.Generator().manual_seed(11)
+    data = []
+    for _ in range(1 + SR23["steps"]):
+        clean = torch.rand(b, hw, hw, 3, generator=g) * 2 - 1
+        noisy = clean + 0.2 * torch.randn(clean.shape, generator=g)
+        data.append([t.to(device) for t in (clean, noisy,
+                                            torch.rand(b, generator=g))])
+    out, ok = {}, True
+    torch.cuda.reset_peak_memory_stats()
+    for name, mods, fn in (("subadd_e", (enc,), lambda x: e_step(x[0], x[1])),
+                           ("subadd_d", (disc,), lambda x: d_step(*x)),
+                           ("contrasive", (cenc,),
+                            lambda x: c_step(x[0], x[1]))):
+        fn(data[0])
+        start = [p.detach().clone() for m in mods for p in m.parameters()]
+        ms, losses = [], []
+        for x in data[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = fn(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses += [float(v) for v in (m.values() if isinstance(m, dict)
+                                          else [m])]
+        moved = all(not torch.equal(a, p) for a, p in zip(
+            start, [p for m in mods for p in m.parameters()]))
+        ok &= moved and all(math.isfinite(v) for v in losses)
+        out[name] = sorted(ms)[len(ms) // 2]
+        log(f"sr (a) pretraining {name} step, LIPEncoder({ngf}, 5) bf16, batch "
+            f"{b} at {hw} px: {', '.join(f'{t:.1f}' for t in ms)} ms "
+            f"(median {out[name]:.1f}); every tensor moved {moved}; losses "
+            f"finite {all(math.isfinite(v) for v in losses)} ({card})")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not ok:
+        raise AssertionError("the encoder pretraining steps")
+    return out
+
+
+def prep_files(d):
+    """Phase 23's inputs in directory d: 64 seeded 256-px crops (and 8 of
+    them for the card-vs-CPU runs), a templated Landmark106 msgpack, a
+    seeded full-size SAM `.pth` (the preset's upstream names; vit_h: ~641
+    M values), a templated full-width SCRFD msgpack, and seeded 1080p
+    jpgs, flat and in identity folders. Returns their paths."""
+    import cv2
+    import numpy as np
+
+    cin = _test_inputs("torch_cli_inputs")
+    tin = _test_inputs("torch_train_cli_inputs")
+    pin = _test_inputs("torch_prep_inputs")
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    f = {"dir": d, "crops": tin.write_faces(f"{d}/crops", rng,
+                                            MASKS["crops"], 256),
+         "crops8": tin.write_faces(f"{d}/crops8", rng, 8, 256),
+         "lmk": pin.templated_landmark_msgpack(f"{d}/lmk.msgpack"),
+         "det": pin.templated_detector_msgpack(f"{d}/det.msgpack"),
+         "sam": f"{d}/sam_{MASKS['preset']}.pth"}
+    sd = pin.sam_preset_state_dict(rng, MASKS["preset"])
+    values = sum(v.size for v in sd.values())
+    cin.save_pth(f["sam"], sd)
+    del sd
+    t1 = time.perf_counter()
+    h, w = PREP["hw"]
+    yy, xx = np.mgrid[:h, :w]
+
+    def image(i):
+        base = np.stack([(xx + 37 * i) % 256, (yy + 11 * i) % 256,
+                         (xx + yy + 5 * i) % 256], -1)
+        return np.clip(base + rng.integers(-20, 21, base.shape), 0,
+                       255).astype(np.uint8)
+
+    f["flat"], f["tree"] = f"{d}/raw", f"{d}/vgg"
+    Path(f["flat"]).mkdir()
+    for i in range(PREP["flat"]):
+        cv2.imwrite(f"{f['flat']}/img{i}.jpg", image(i))
+    for k in range(PREP["dirs"]):
+        Path(f"{f['tree']}/id{k}").mkdir(parents=True)
+        for i in range(PREP["per_dir"]):
+            cv2.imwrite(f"{f['tree']}/id{k}/{i}.jpg", image(10 * k + i))
+    log(f"masks: wrote the {MASKS['preset']} .pth ({values / 1e6:.1f} M "
+        f"values, {Path(f['sam']).stat().st_size / 2 ** 30:.2f} GiB) in "
+        f"{t1 - t0:.1f} s with the crops and msgpacks, the 1080p jpgs in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return f
+
+
+def _pngs(d):
+    return sorted(p.name for p in Path(d).iterdir())
+
+
+def _read_image(path):
+    import cv2
+
+    return cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+
+
+def _dirs_close(got, want, grey=3, share=ROUTE_EDGE_SHARE):
+    """Every image of directory tree `want` in `got`, within `grey` levels
+    on all but `share` of its values; (files, worst share)."""
+    import numpy as np
+
+    names = sorted(str(p.relative_to(want)) for p in Path(want).rglob("*")
+                   if p.is_file())
+    got_names = sorted(str(p.relative_to(got)) for p in Path(got).rglob("*")
+                       if p.is_file())
+    worst = 1.0 if names != got_names or not names else 0.0
+    for n in names if not worst else []:
+        a, b = (_read_image(Path(r) / n).astype(np.int32) for r in (got, want))
+        worst = max(worst, float((np.abs(a - b) > grey).mean())
+                    if a.shape == b.shape else 1.0)
+    return len(names), worst
+
+
+def _masks_hull(card, f):
+    """(b) `precompute_masks.main(argv)` hull route on the card at
+    --batch_size 32 over 64 crops with the templated Landmark106: 64
+    masks, each a real face mask; wall, ms per crop, peak memory; then
+    on 8 crops the card against `main(argv, device="cpu")` (all but
+    ROUTE_EDGE_SHARE of each mask's values within 3 grey levels: the
+    hull's hard threshold). Returns (counts, numbers)."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.cli import precompute_masks as pm
+
+    d = f["dir"]
+    argv = ["--landmark_path", f["lmk"], "--batch_size",
+            str(MASKS["batch"])]
+    counts = {}
+    torch.cuda.empty_cache()
+    for warm in (True, False):
+        out = f"{d}/hull{'_warm' if warm else ''}"
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        wall, lines, _ = _cli_call(lambda: pm.main(
+            ["--input_dir", f["crops"], "--output_dir", out] + argv))
+        counts["hull"] = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    names = _pngs(out)
+    cover = [float((_read_image(f"{out}/{n}") > 127).mean()) for n in names]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = f"{d}/hull8_{dev}"
+        zero_counts()
+        _cli_call(lambda: pm.main(["--input_dir", f["crops8"],
+                                   "--output_dir", runs[dev]] + argv,
+                                  device=dev))
+        if dev == "cuda":
+            counts["hull_parity"] = read_counts()
+    n8, share = _dirs_close(runs["cuda"], runs["cpu"])
+    ms = wall * 1e3 / MASKS["crops"]
+    ok = (lines == ["done"] and len(names) == MASKS["crops"]
+          and min(cover) > 0.05 and max(cover) < 0.95 and n8 == 8
+          and share <= ROUTE_EDGE_SHARE)
+    log(f"masks (b) hull main(argv) at --batch_size {MASKS['batch']}: "
+        f"{len(names)} masks, warm wall {wall:.2f} s, {ms:.2f} ms a crop, "
+        f"peak {peak:.2f} GiB, face cover {min(cover):.3f}-"
+        f"{max(cover):.3f}; card vs CPU on 8 crops: {share:.2e} of values "
+        f"beyond 3 grey levels (bound {ROUTE_EDGE_SHARE}): {ok} ({card})")
+    if not ok:
+        raise AssertionError(f"precompute_masks hull: {lines[-3:]}")
+    return counts, {"hull_ms_per_crop": ms, "hull_peak_gib": peak}
+
+
+def _sam_flops(preset, img=1024, patch=16, ws=14):
+    """Multiply-adds x 2 of ImageEncoderViT(preset) on one image: patch
+    embed, per block qkv, proj, MLP, windowed or global attention (QK^T
+    and PV over the padded windows), the rel-pos einsums, the neck."""
+    d, depth, heads, glob = _test_inputs("torch_prep_inputs").SAM_PRESETS[
+        preset]
+    g = img // patch
+    n = g * g
+    hd = d // heads
+    fl = 2 * n * d * 3 * patch * patch
+    gp = -(-g // ws) * ws
+    for i in range(depth):
+        fl += 2 * n * d * (3 * d + d + 8 * d)
+        if i in glob:
+            fl += 2 * 2 * n * n * d + 2 * 2 * n * g * d
+        else:
+            t = ws * ws
+            fl += (gp // ws) ** 2 * (2 * 2 * t * t * d + 2 * 2 * t * ws * d)
+    fl += 2 * n * d * 256 + 2 * n * 256 * 256 * 9
+    return fl
+
+
+def _masks_sam(card, f, device):
+    """(b) `precompute_masks.main(argv)` SAM route at the default
+    --sam_preset (vit_h) on the seeded full-size `.pth` over 16 crops:
+    16 masks of 0/255 with both values present; the load (torch.load,
+    convert, bridge, cast) and each `predict_points` call timed apart,
+    peak memory; then the image encoder alone on one 1024 image (CUDA
+    events) against its bf16 operations bound. Returns (counts,
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.cli import precompute_masks as pm
+    from ghost_tpu_torch.models import sam as sam_mod
+
+    d = f["dir"]
+    crops = f"{d}/sam_crops"
+    Path(crops).mkdir()
+    for n in sorted(Path(f["crops"]).iterdir())[:MASKS["sam_crops"]]:
+        (Path(crops) / n.name).write_bytes(n.read_bytes())
+    rec = {"calls": []}
+    real_load, real_pred = pm.load_sam, sam_mod.SamPredictor.predict_points
+
+    def load(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["model"] = real_load(*a, **kw)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+        return rec["model"]
+
+    def pred(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real_pred(self, *a, **kw)
+        rec["calls"].append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pm.load_sam, sam_mod.SamPredictor.predict_points = load, pred
+    zero_counts()
+    try:
+        wall, lines, _ = _cli_call(lambda: pm.main(
+            ["--input_dir", crops, "--output_dir", f"{d}/sam_masks",
+             "--sam_path", f["sam"], "--sam_preset", MASKS["preset"]]))
+    finally:
+        pm.load_sam, sam_mod.SamPredictor.predict_points = real_load, real_pred
+    counts = {"sam": read_counts()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    names = _pngs(f"{d}/sam_masks")
+    vals = set()
+    for n in names:
+        vals |= set(np.unique(_read_image(f"{d}/sam_masks/{n}")).tolist())
+    model = rec.pop("model")
+    side = model.image_encoder.img_size
+    x = torch.randn(1, side, side, 3, device=device,
+                    generator=torch.Generator(device=device).manual_seed(12))
+    with torch.inference_mode():
+        enc_ms = _time_one(lambda: model.image_encoder(x), 5, device)
+    flops = _sam_flops(MASKS["preset"], img=side)
+    bound_ms = flops / BF16_FLOPS * 1e3
+    calls = rec["calls"]
+    med = sorted(calls[1:])[len(calls[1:]) // 2]
+    ok = (lines == ["done (SAM)"] and len(names) == MASKS["sam_crops"]
+          and vals == {0, 255} and len(calls) == MASKS["sam_crops"])
+    log(f"masks (b) SAM {MASKS['preset']} main(argv) on "
+        f"{MASKS['sam_crops']} crops, bf16: wall {wall:.2f} s, load "
+        f"{rec['load_s']:.2f} s, predict_points first {calls[0]:.1f} ms, "
+        f"then median {med:.2f} ms a crop; peak {peak:.2f} GiB; mask "
+        f"values {sorted(vals)}; image encoder alone {enc_ms:.2f} ms a "
+        f"{side}-px image against {bound_ms:.2f} ms ({flops / 1e12:.2f} TFLOP at the "
+        f"bf16 dense peak {BF16_FLOPS / 1e12:.0f} TFLOP/s: "
+        f"{bound_ms / enc_ms:.1%}): {ok} ({card})")
+    if not ok:
+        raise AssertionError(f"precompute_masks SAM: {lines[-3:]} {vals}")
+    nums = {"sam_load_s": rec["load_s"], "sam_ms_per_crop": med,
+            "sam_peak_gib": peak, "sam_encoder_ms": enc_ms,
+            "sam_encoder_bound_ms": bound_ms}
+    return counts, nums, lambda: model.image_encoder(x)
+
+
+def _profiled(name, fn, card):
+    """fn once under torch.profiler (again while a session comes back
+    empty): wall, device busy time and share, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(_dev_us(e) for e in kernels)
+        if busy > 0:
+            break
+    log(f"sr/masks profile of {name}: wall {wall * 1e3:.1f} ms (profiled), "
+        f"device busy {busy / 1e3:.1f} ms ({busy / 1e6 / wall:.1%}), "
+        f"{sum(e.count for e in kernels)} kernels ({card})")
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:8]:
+        log(f"  {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    if not busy > 0:
+        raise AssertionError(f"{name}: the profiler saw no device time")
+    return busy / 1e6 / wall
+
+
+def _sam_parity(card, device):
+    """(b0) the tiny SAM of tests/test_torch_sam.py (48 px, depth 2) in
+    f32, card against CPU on one seeded state dict: predict_points'
+    logits within 2e-4 of their largest, the masks equal except where
+    |logit| <= 2e-4 of the largest (at most ROUTE_EDGE_SHARE)."""
+    import numpy as np
+
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.torch_loader import convert_sam_state_dict
+    from ghost_tpu_torch.core.precision import FULL_PRECISION as F32
+    from ghost_tpu_torch.models import sam as S
+
+    pin = _test_inputs("torch_prep_inputs")
+    sd = pin.sam_state_dict(np.random.default_rng(13), 8, 2, 2, (1,), 48,
+                            16, 2, 16, 32)
+    tree = convert_sam_state_dict(sd, depth=2)
+    rng = np.random.default_rng(14)
+    img = rng.integers(0, 255, (96, 96, 3), dtype=np.uint8)
+    kps = rng.uniform(0, 96, (5, 2)).astype(np.float32)
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        m = S.Sam(S.ImageEncoderViT(48, 16, 8, 2, 2, 2, (1,), 16, F32, dev),
+                  S.PromptEncoder(16, 48, 3, F32, dev),
+                  S.MaskDecoder(16, 2, 32, policy=F32, device=dev))
+        m = load_flax_variables(m.eval(), tree)
+        out[name] = S.SamPredictor(m).predict_points(
+            img, kps, np.ones(5), multimask_output=True)
+    (mc, _, lc), (mk, _, lk) = out["cpu"], out["card"]
+    top = float(np.abs(lc).max())
+    err = float(np.abs(lk - lc).max()) / top
+    diff = mk != mc
+    edge = np.abs(lc) <= 2e-4 * top
+    ok = err <= 2e-4 and not (diff & ~edge).any() \
+        and diff.mean() <= ROUTE_EDGE_SHARE
+    log(f"masks (b0) tiny SAM f32 card vs CPU: logits {err:.2e} of the "
+        f"largest, masks differ on {diff.mean():.2e}: {ok} ({card})")
+    if not ok:
+        raise AssertionError("SAM: card against CPU")
+
+
+def _prep_argv(f, mode, out):
+    src = f["tree"] if mode == "vgg" else f["flat"]
+    extra = {"celeba": ["--max_darken", "2"],
+             "vgg": ["--max_images_per_dir", str(PREP["per_dir"])],
+             "gender": []}[mode]
+    return ["--mode", mode, "--input_dir", src, "--output_dir", out,
+            "--detector_path", f["det"], *extra]
+
+
+def _prep_full(card, f):
+    """(c) `preprocess.main(argv)` on the card in each mode on the seeded
+    1080p jpgs with the templated full-width detector: celeba
+    --max_darken 2 (4 images: 12 files), vgg (2 folders x 4: 8), gender
+    (4, the random head); wall, ms per image, and each `crop_faces`
+    call synced. Returns (counts, numbers)."""
+    import torch
+
+    from ghost_tpu_torch.cli import preprocess as pp
+    from ghost_tpu_torch.pipeline import swap
+
+    d = f["dir"]
+    real_crop = swap.SwapPipeline.crop_faces
+    counts, out = {}, {}
+    n_img = {"celeba": PREP["flat"], "vgg": PREP["dirs"] * PREP["per_dir"],
+             "gender": PREP["flat"]}
+    want = {"celeba": 3 * PREP["flat"], "vgg": n_img["vgg"],
+            "gender": PREP["flat"]}
+    for mode in ("celeba", "vgg", "gender"):
+        calls = []
+
+        def crop(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = real_crop(self, *a, **kw)
+            calls.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        swap.SwapPipeline.crop_faces = crop
+        zero_counts()
+        try:
+            wall, lines, _ = _cli_call(lambda: pp.main(_prep_argv(
+                f, mode, f"{d}/prep_{mode}")))
+        finally:
+            swap.SwapPipeline.crop_faces = real_crop
+        counts[f"prep_{mode}"] = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        files = [p for p in Path(f"{d}/prep_{mode}").rglob("*.jpg")]
+        shapes = {_read_image(p).shape for p in files}
+        med = sorted(calls[1:])[len(calls[1:]) // 2]
+        out[mode] = (wall * 1e3 / n_img[mode], med, peak)
+        log(f"prep (c) preprocess --mode {mode} main(argv) on "
+            f"{n_img[mode]} 1080p images: wall {wall:.2f} s (pipeline build "
+            f"included), {out[mode][0]:.1f} ms an image, crop_faces first "
+            f"{calls[0]:.1f} ms then median {med:.2f} ms, peak {peak:.2f} "
+            f"GiB, {len(files)} crops {sorted(shapes)} ({card})")
+        if lines[-1] != "done" or len(files) != want[mode] \
+                or shapes != {(256, 256, 3)}:
+            raise AssertionError(f"preprocess {mode}: {lines[-3:]}")
+    return counts, out
+
+
+def _prep_parity(card, f):
+    """(c0) `preprocess.main(argv)` --mode celeba --max_darken 2 on the
+    1080p jpgs, card against `main(argv, device="cpu")`, both on a narrow
+    f32
+    pipeline (`build_random_pipeline` wrapped: det_size 320, ArcFace
+    (1,1,1,1), AEI-Net width 1/16, the same seed; the templated detector
+    msgpack): the same files, each within 3 grey levels on all but
+    ROUTE_EDGE_SHARE of its values. Returns the card's counts."""
+    from ghost_tpu_torch.cli import preprocess as pp
+    from ghost_tpu_torch.core.precision import FULL_PRECISION as F32
+    from ghost_tpu_torch.pipeline import swap
+
+    d = f["dir"]
+    real = swap.build_random_pipeline
+
+    def narrow(config, device="cuda", **kw):
+        import dataclasses
+
+        return real(dataclasses.replace(config, det_size=320), policy=F32,
+                    gen_width=1 / 16, device=device)
+
+    counts, runs = {}, {}
+    swap.build_random_pipeline = narrow
+    try:
+        for dev in ("cuda", "cpu"):
+            runs[dev] = f"{d}/prep_parity_{dev}"
+            zero_counts()
+            _cli_call(lambda: pp.main(_prep_argv(f, "celeba", runs[dev]),
+                                      device=dev))
+            if dev == "cuda":
+                counts["prep_parity"] = read_counts()
+    finally:
+        swap.build_random_pipeline = real
+    n, share = _dirs_close(runs["cuda"], runs["cpu"])
+    ok = n == 3 * PREP["flat"] and share <= ROUTE_EDGE_SHARE
+    log(f"prep (c0) celeba --max_darken 2 on the {PREP['flat']} 1080p "
+        f"images, narrow f32 pipeline, card vs CPU: "
+        f"{n} files, {share:.2e} of values beyond 3 grey levels: {ok} "
+        f"({card})")
+    if not ok:
+        raise AssertionError("preprocess: card against CPU")
+    return counts
+
+
+def phase_sr_masks(card, device):
+    """Phase 23: the SR-training library (Pix2PixSR's TTUR steps with
+    SpectralConv's power iteration, HiFaceGAN, the encoder pretraining)
+    and the mask-target and preprocessing CLIs (`python -m
+    ghost_tpu_torch.cli.precompute_masks`, `cli.preprocess`) through
+    `main(argv)`: card against CPU at the tests' narrow configs, then the
+    reference's sizes. None of the table's kernels runs on these paths
+    (cuDNN convs, cuBLAS matmuls, SAM's attention a plain matmul as in
+    JAX): every count must read 0. Returns each run's counts and the
+    numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts, nums, probes = {}, {}, {}
+    counts.update(_sr_parity(card, device))
+    for policy_name in ("bf16", "f32"):
+        zero_counts()
+        nums[f"pix2pix_{policy_name}"], probe = _sr_full(card, device,
+                                                         policy_name)
+        counts[f"pix2pix_{policy_name}"] = read_counts()
+        if policy_name == "bf16":
+            probes["the bf16 Pix2PixSR G step"] = probe
+    zero_counts()
+    nums["hifacegan"] = _hifacegan(card, device)
+    counts["hifacegan"] = read_counts()
+    zero_counts()
+    nums["pretrain"] = _pretrain_full(card, device)
+    counts["pretrain"] = read_counts()
+    with tempfile.TemporaryDirectory() as d:
+        f = prep_files(d)
+        _sam_parity(card, device)
+        for run in (lambda: _masks_hull(card, f),
+                    lambda: _masks_sam(card, f, device),
+                    lambda: (_prep_parity(card, f), {}),
+                    lambda: _prep_full(card, f)):
+            c, n, *probe = run()
+            counts.update(c)
+            nums.update(n)
+            if probe:
+                probes[f"SAM {MASKS['preset']}'s image encoder"] = probe[0]
+    # last: a profiler session can slow the host for the rest of the
+    # process
+    with torch.inference_mode(False):
+        for name, fn in probes.items():
+            nums[f"busy {name}"] = _profiled(name, fn, card)
+    del probes
+    torch.cuda.empty_cache()
+    launched = {run: c for run, c in counts.items() if any(c.values())}
+    log(f"sr/masks: phase 23 in {time.perf_counter() - t0:.1f} s; runs that "
+        f"launched a kernel of the table: {launched} ({card})")
+    if launched:
+        raise AssertionError(f"phase 23 launched kernels: {launched}")
+    return counts, nums
+
+
 def main(argv):
     import torch
 
@@ -4394,6 +5192,7 @@ def main(argv):
         phase_gan(device, card)
         train_cli = phase_train_cli(card, files)
         distill, extras = phase_distill(card, files)
+    sr_masks, _ = phase_sr_masks(card, device)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -4422,7 +5221,11 @@ def main(argv):
                         "distill_launches": {run: c[name] for run, c
                                              in distill.items()},
                         "train_extras_launches": {run: c[name] for run, c
-                                                  in extras.items()}})
+                                                  in extras.items()},
+                        # each SR-training, mask-target and
+                        # preprocessing run of phase 23 (all 0)
+                        "sr_masks_launches": {run: c[name] for run, c
+                                              in sr_masks.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

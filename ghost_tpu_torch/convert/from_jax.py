@@ -31,6 +31,13 @@ levels that `ghost_tpu/nn/layers.py` adds (`Conv_0`, `Dense_0`,
   ToRGB           bias (3,), a bare param, as it is
   StyleGAN2CSFT   constant_input, a bare param kept in flax's NHWC
                   layout (1,4,4,C) (the decoder runs NHWC)
+  ConvEncoder     fc_mu/fc_var, bare flax Dense layers (no wrapper level)
+  SAM             bare params at their module's own level, as they are:
+                  ImageEncoderViT pos_embed (1,g,g,C) in flax's NHWC
+                  layout, VitAttention rel_pos_h/rel_pos_w,
+                  PromptEncoder pe_gauss, point_embed_{i}, not_a_point,
+                  no_mask_embed, MaskDecoder iou_token/mask_tokens;
+                  LayerNorm2d's and the bare flax LayerNorms' scale/bias
 
 Collections read: params, batch_stats, spectral. The bridge is strict: every port tensor is filled exactly once and
 every flax leaf is used exactly once, or it raises.
@@ -57,7 +64,11 @@ from torch import nn
 
 from ghost_tpu_torch.models.arcface import IResNet
 from ghost_tpu_torch.models.landmark import Landmark106
+from ghost_tpu_torch.models.sam import (ImageEncoderViT, LayerNorm,
+                                        LayerNorm2d, MaskDecoder,
+                                        PromptEncoder, VitAttention)
 from ghost_tpu_torch.models.scrfd_v1e import SCRFDHeadShared
+from ghost_tpu_torch.models.sr.encoder import ConvEncoder
 from ghost_tpu_torch.models.sr.generator import SimplifiedLIP
 from ghost_tpu_torch.models.sr.gfpgan import (ModulatedConv, StyleConv,
                                               StyleGAN2CSFT, ToRGB)
@@ -106,7 +117,8 @@ _BARE_LAYERS = frozenset(
     [(SPADE, n) for n in ("pfn", "mlp_shared", "mlp_gamma", "mlp_beta")]
     + [(MultiheadAttention, n) for n in ("q_proj", "k_proj", "v_proj",
                                          "out_proj")]
-    + [(IResNet, "features"), (Landmark106, "fc")])
+    + [(IResNet, "features"), (Landmark106, "fc"), (ConvEncoder, "fc_mu"),
+       (ConvEncoder, "fc_var")])
 # the inverse of each layout change of _LEAF_MAP
 _UNDO = {(Conv, "kernel"): lambda v: v.transpose(2, 3, 1, 0),
          (ConvTranspose, "kernel"): lambda v: v.transpose(2, 3, 0, 1),
@@ -117,7 +129,8 @@ _COLLECTION = {"mean": "batch_stats", "var": "batch_stats", "u": "spectral",
                "v": "spectral"}
 # modules whose own bare parameters are flax leaves of the same name
 _BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP, SCRFDHeadShared, StyleConv,
-                ToRGB, StyleGAN2CSFT)
+                ToRGB, StyleGAN2CSFT, ImageEncoderViT, VitAttention,
+                PromptEncoder, MaskDecoder, LayerNorm2d, LayerNorm)
 
 
 def _flatten(tree, prefix=()):

@@ -29,7 +29,9 @@ checkpoints (`--enhance_output face|full`) read through
 (RealESRGAN_x4plus.pth) and `convert_srvgg_state_dict`
 (realesr-general-x4v3.pth). `convert_spade_generator_state_dict` reads
 the LIPSPADE SR generator (10_net_G.pth) behind the train CLI's
-`--teacher_upsample --sr_path *.pth`.
+`--teacher_upsample --sr_path *.pth`. `convert_sam_state_dict` reads
+Segment Anything (sam_vit_{b,l,h}_*.pth) behind `cli/precompute_masks.py
+--sam_path *.pth`.
 """
 
 from __future__ import annotations
@@ -606,3 +608,96 @@ def convert_gfpgan_state_dict(
             }}
     params["stylegan_decoder"] = dec
     return {"params": params}
+
+
+def _dense(sd, name):
+    return {"Dense_0": {"kernel": _linear_kernel(sd, name),
+                        "bias": sd[f"{name}.bias"]}}
+
+
+def _ln(sd, name):
+    return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+
+def convert_sam_state_dict(sd: Mapping[str, np.ndarray], depth: int = 32):
+    """Segment Anything checkpoints (the sam_vit_h_4b8939.pth family;
+    reference train-mask.py:236, segment_anything_celeba.py:24) -> the
+    variables of `models/sam.py:build_sam`, the JAX package's tree
+    (`ghost_tpu/convert/torch_loader.py:684`). depth: 12 (vit_b), 24
+    (vit_l) or 32 (vit_h). The key layout is the public
+    segment_anything/modeling sources'."""
+    enc: Dict = {
+        "patch_embed": {"Conv_0": {
+            "kernel": _conv(sd, "image_encoder.patch_embed.proj"),
+            "bias": sd["image_encoder.patch_embed.proj.bias"]}},
+        "pos_embed": sd["image_encoder.pos_embed"],  # already (1,H,W,C)
+        "neck_conv1": {"Conv_0": {"kernel": _conv(sd,
+                                                  "image_encoder.neck.0")}},
+        "neck_ln1": _ln(sd, "image_encoder.neck.1"),
+        "neck_conv2": {"Conv_0": {"kernel": _conv(sd,
+                                                  "image_encoder.neck.2")}},
+        "neck_ln2": _ln(sd, "image_encoder.neck.3"),
+    }
+    for i in range(depth):
+        t = f"image_encoder.blocks.{i}"
+        enc[f"block_{i}"] = {
+            "norm1": _ln(sd, f"{t}.norm1"),
+            "norm2": _ln(sd, f"{t}.norm2"),
+            "attn": {
+                "qkv": _dense(sd, f"{t}.attn.qkv"),
+                "proj": _dense(sd, f"{t}.attn.proj"),
+                "rel_pos_h": sd[f"{t}.attn.rel_pos_h"],
+                "rel_pos_w": sd[f"{t}.attn.rel_pos_w"],
+            },
+            "mlp_lin1": _dense(sd, f"{t}.mlp.lin1"),
+            "mlp_lin2": _dense(sd, f"{t}.mlp.lin2"),
+        }
+
+    prm: Dict = {
+        "pe_gauss":
+            sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"],
+        "not_a_point": sd["prompt_encoder.not_a_point_embed.weight"][0],
+        "no_mask_embed": sd["prompt_encoder.no_mask_embed.weight"][0],
+    }
+    for i in range(4):
+        prm[f"point_embed_{i}"] = \
+            sd[f"prompt_encoder.point_embeddings.{i}.weight"][0]
+
+    def attn(prefix):
+        return {n: _dense(sd, f"{prefix}.{n}")
+                for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+    dec: Dict = {
+        "iou_token": sd["mask_decoder.iou_token.weight"],
+        "mask_tokens": sd["mask_decoder.mask_tokens.weight"],
+        "final_attn": attn("mask_decoder.transformer.final_attn_token_to_image"),
+        "norm_final": _ln(sd, "mask_decoder.transformer.norm_final_attn"),
+        "upscale_conv1": {
+            "kernel": _deconv(sd, "mask_decoder.output_upscaling.0"),
+            "bias": sd["mask_decoder.output_upscaling.0.bias"]},
+        "upscale_ln": _ln(sd, "mask_decoder.output_upscaling.1"),
+        "upscale_conv2": {
+            "kernel": _deconv(sd, "mask_decoder.output_upscaling.3"),
+            "bias": sd["mask_decoder.output_upscaling.3.bias"]},
+    }
+    for i in range(2):
+        t = f"mask_decoder.transformer.layers.{i}"
+        dec[f"layer_{i}"] = {
+            "self_attn": attn(f"{t}.self_attn"),
+            "cross_attn_token_to_image": attn(f"{t}.cross_attn_token_to_image"),
+            "cross_attn_image_to_token": attn(f"{t}.cross_attn_image_to_token"),
+            "norm1": _ln(sd, f"{t}.norm1"), "norm2": _ln(sd, f"{t}.norm2"),
+            "norm3": _ln(sd, f"{t}.norm3"), "norm4": _ln(sd, f"{t}.norm4"),
+            "mlp_lin1": _dense(sd, f"{t}.mlp.lin1"),
+            "mlp_lin2": _dense(sd, f"{t}.mlp.lin2"),
+        }
+    for i in range(4):
+        for j in range(3):
+            dec[f"hyper_{i}_lin{j}"] = _dense(
+                sd, f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}")
+    for j in range(3):
+        dec[f"iou_lin{j}"] = _dense(
+            sd, f"mask_decoder.iou_prediction_head.layers.{j}")
+
+    return {"params": {"image_encoder": enc, "prompt_encoder": prm,
+                       "mask_decoder": dec}}

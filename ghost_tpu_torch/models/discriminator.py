@@ -8,8 +8,10 @@ the finest input read by the one named `scale{num_D-1}` (the reference
 indexes its sub-discriminators coarsest-first). Takes NHWC images and
 returns a list over scales, each a list whose last element is that
 scale's logits map (NHWC), with every stage's features before it when
-`get_interm_feat`. Inside, maps are NCHW in channels_last memory. The
-JAX module's `use_sigmoid`, which nothing sets, is left out.
+`get_interm_feat`. Inside, maps are NCHW in channels_last memory.
+`input_nc` is the input's channels, which flax infers (6 for the SR
+trainer's (degraded, image) pairs). The JAX module's `use_sigmoid`,
+which nothing sets, is left out.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ class NLayerDiscriminator(nn.Module):
 
     def __init__(self, ndf=64, n_layers=3, norm="instance",
                  get_interm_feat=False, policy: Policy = DEFAULT_POLICY,
-                 train=False, device=None):
+                 train=False, device=None, input_nc=3):
         super().__init__()
         if norm not in ("instance", "batch", "none"):
             raise ValueError(f"unknown norm {norm!r}")
@@ -39,7 +41,8 @@ class NLayerDiscriminator(nn.Module):
         self.n_layers = n_layers
         self.get_interm_feat = get_interm_feat
         nf = ndf
-        self.stage0 = Conv(3, nf, 4, 2, padding=2, dtype=cd, device=device)
+        self.stage0 = Conv(input_nc, nf, 4, 2, padding=2, dtype=cd,
+                           device=device)
         for n in range(1, n_layers + 1):
             nf_prev, nf = nf, min(nf * 2, 512)
             stride = 2 if n < n_layers else 1
@@ -79,14 +82,15 @@ class MultiscaleDiscriminator(nn.Module):
 
     def __init__(self, ndf=64, n_layers=3, num_D=3, norm="instance",
                  get_interm_feat=False, policy: Policy = DEFAULT_POLICY,
-                 train=False, device=None):
+                 train=False, device=None, input_nc=3):
         super().__init__()
         self.policy = policy
         self.num_D = num_D
         self.get_interm_feat = get_interm_feat
         for i in range(num_D):
             self.add_module(f"scale{num_D - 1 - i}", NLayerDiscriminator(
-                ndf, n_layers, norm, get_interm_feat, policy, train, device))
+                ndf, n_layers, norm, get_interm_feat, policy, train, device,
+                input_nc))
 
     def forward(self, x):
         current = x.to(self.policy.compute_dtype)

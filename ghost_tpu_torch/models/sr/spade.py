@@ -1,16 +1,28 @@
 """SPADE building blocks of the SR generator, mirroring
-`ghost_tpu/models/sr/spade.py` (inference side).
+`ghost_tpu/models/sr/spade.py`.
 
   * SpectralConv: a conv whose weight is divided by sigma = u @ (W v),
-    from the stored power-iteration pair (u, v) of the flax 'spectral'
-    collection, W the (cout, cin*kh*kw) flatten of the (cout, cin, kh, kw)
-    weight (`spade.py:60-62`). As in the JAX module with
-    update_stats=False, no iteration runs at inference;
-  * SPADE: an affine-free batch norm ('syncbatch', running stats) or the
-    mean-free `rms_instance_norm` ('instance'), modulated by gamma/beta
-    convs over the nearest-resized input image;
+    W the (cout, cin*kh*kw) flatten of the (cout, cin, kh, kw) weight
+    (`spade.py:60-62`) and (u, v) the flax 'spectral' collection. With
+    update_stats=False (inference) the stored pair is used as it is;
+    with update_stats=True (training) each call first runs one power
+    iteration from the stored u, v first and then u (`spade.py:77-82`),
+    takes sigma from the fresh pair and stores it. As in JAX, only the
+    stored copies are detached: the gradient of sigma flows through the
+    iteration (`torch.nn.utils.spectral_norm` runs it without autograd,
+    a different gradient);
+  * SPADE: an affine-free batch norm ('syncbatch'; running stats, or in
+    train mode the batch statistics with flax's numerics and a
+    0.9/0.1 running update) or the mean-free `rms_instance_norm`
+    ('instance'), modulated by gamma/beta convs over the nearest-resized
+    segmentation map (the input image, or HiFaceGAN's guidance features);
   * SPADEResnetBlock: norm -> leaky_relu(0.2) -> spectral conv, twice,
-    plus a learned spectral 1x1 shortcut when fin != fout.
+    plus a learned spectral 1x1 shortcut when fin != fout; `train` runs
+    its norms on batch statistics and its convs' power iteration.
+
+`nn.layers.frozen_batch_stats` keeps both kinds of state (BatchNorm's
+running statistics and the stored (u, v)) for a call whose updates JAX
+throws away.
 
 Tensors are NHWC at every function and module boundary; the convs are
 `F.conv2d` on the NCHW (channels_last) view, as the JAX package computes
@@ -40,12 +52,16 @@ class SpectralConv(nn.Module):
 
     def __init__(self, cin, features, kernel_size=3, padding=1,
                  use_bias=True, eps: float = 1e-12, dtype=torch.float32,
-                 device=None):
+                 update_stats: bool = False, device=None):
         super().__init__()
         k = kernel_size
         self.padding = padding
         self.eps = eps
         self.dtype = dtype
+        # JAX's update_stats: one power iteration per call
+        self.power_iteration = update_stats
+        # store the fresh pair (off inside `frozen_batch_stats`)
+        self.update_stats = True
         self.weight = nn.Parameter(torch.empty(features, cin, k, k,
                                                device=device))
         self.bias = (nn.Parameter(torch.empty(features, device=device))
@@ -67,7 +83,17 @@ class SpectralConv(nn.Module):
 
     def forward(self, x):
         w_mat = self.weight.reshape(self.weight.shape[0], -1)
-        sigma = self.u @ (w_mat @ self.v)
+        u, v = self.u, self.v
+        if self.power_iteration:
+            # a copy: the stored u is overwritten below, and autograd
+            # keeps the one this product read
+            v = self._nrm(w_mat.T @ u.clone())
+            u = self._nrm(w_mat @ v)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.u.copy_(u)
+                    self.v.copy_(v)
+        sigma = u @ (w_mat @ v)
         w_sn = (self.weight / sigma).to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         y = F.conv2d(to_nchw(x.to(self.dtype)), w_sn, b, 1, self.padding)
@@ -80,14 +106,14 @@ class SPADE(nn.Module):
 
     def __init__(self, norm_nc, param_free: str = "syncbatch", ks: int = 3,
                  label_nc: int = 3, policy: Policy = DEFAULT_POLICY,
-                 device=None):
+                 train: bool = False, device=None):
         super().__init__()
         cd = policy.compute_dtype
         self.param_free = param_free
         self.policy = policy
         if param_free != "instance":
             self.pfn = BatchNorm(norm_nc, eps=1e-5, dtype=cd, device=device,
-                                 affine=False)
+                                 affine=False, train=train)
         nhidden = 128 if norm_nc > 128 else norm_nc
         pw = ks // 2
         self.mlp_shared = Conv(label_nc, nhidden, ks, padding=pw, dtype=cd,
@@ -111,22 +137,25 @@ class SPADE(nn.Module):
 
 
 class SPADEResnetBlock(nn.Module):
+    """label_nc: the channels of the segmentation map its norms read."""
+
     def __init__(self, fin, fout, param_free: str = "syncbatch",
-                 policy: Policy = DEFAULT_POLICY, device=None):
+                 policy: Policy = DEFAULT_POLICY, train: bool = False,
+                 label_nc: int = 3, device=None):
         super().__init__()
         cd = policy.compute_dtype
         fmiddle = min(fin, fout)
         self.learned_shortcut = fin != fout
-        kw = dict(param_free=param_free, policy=policy, device=device)
+        kw = dict(param_free=param_free, label_nc=label_nc, policy=policy,
+                  train=train, device=device)
+        sn = dict(dtype=cd, update_stats=train, device=device)
         self.norm_0 = SPADE(fin, **kw)
-        self.conv_0 = SpectralConv(fin, fmiddle, 3, 1, dtype=cd, device=device)
+        self.conv_0 = SpectralConv(fin, fmiddle, 3, 1, **sn)
         self.norm_1 = SPADE(fmiddle, **kw)
-        self.conv_1 = SpectralConv(fmiddle, fout, 3, 1, dtype=cd,
-                                   device=device)
+        self.conv_1 = SpectralConv(fmiddle, fout, 3, 1, **sn)
         if self.learned_shortcut:
             self.norm_s = SPADE(fin, **kw)
-            self.conv_s = SpectralConv(fin, fout, 1, 0, use_bias=False,
-                                       dtype=cd, device=device)
+            self.conv_s = SpectralConv(fin, fout, 1, 0, use_bias=False, **sn)
 
     def forward(self, x, seg):
         dx = self.conv_0(leaky_relu(self.norm_0(x, seg), 0.2))

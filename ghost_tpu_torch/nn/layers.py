@@ -229,11 +229,14 @@ class BatchNorm(nn.Module):
 
 @contextlib.contextmanager
 def frozen_batch_stats(module: nn.Module):
-    """Train-mode BatchNorms under `module` keep their running statistics
-    for the duration (flax's apply with the batch_stats updates thrown
-    away, as `ghost_tpu/train/train_step.py:172-177` recomputes the
-    attributes)."""
-    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    """Train-mode BatchNorms under `module` keep their running statistics,
+    and power-iterating SpectralConvs (`models/sr/spade.py`) their stored
+    (u, v), for the duration: flax's apply with the mutable collections'
+    updates thrown away, as `ghost_tpu/train/train_step.py:172-177`
+    recomputes the attributes and `ghost_tpu/models/sr/pix2pix.py:91-102`
+    generates. Each such module stores only while its `update_stats` is
+    set."""
+    bns = [m for m in module.modules() if hasattr(m, "update_stats")]
     saved = [m.update_stats for m in bns]
     for m in bns:
         m.update_stats = False
@@ -316,6 +319,16 @@ def rms_instance_norm(x, eps: float = 1e-8):
     return x * torch.rsqrt(ms + eps)
 
 
+def window_sum_3x3s2(x):
+    """Sums of NHWC x over the 3x3 windows of stride 2 with zero padding
+    1, in x's dtype: nine strided slices of the padded input added up
+    (elementwise ops, whose gradient is right on every device)."""
+    h, w = (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return sum(xp[:, i:i + 2 * h - 1:2, j:j + 2 * w - 1:2]
+               for i in range(3) for j in range(3))
+
+
 def avg_pool_3x3s2(x):
     """AvgPool2d(3, stride 2, padding 1, count_include_pad=False) over
     NHWC axes (1, 2), the multiscale discriminator's downsample
@@ -328,9 +341,7 @@ def avg_pool_3x3s2(x):
     dt = x.dtype
     h_in, w_in = x.shape[1], x.shape[2]
     h, w = (h_in - 1) // 2 + 1, (w_in - 1) // 2 + 1
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    s = sum(xp[:, i:i + 2 * h - 1:2, j:j + 2 * w - 1:2]
-            for i in range(3) for j in range(3))
+    s = window_sum_3x3s2(x.float())
     counts = np.outer(_window_counts(h_in, h), _window_counts(w_in, w))
     counts = torch.from_numpy(counts).to(x.device, dt)
     return s.to(dt) / counts.view(1, h, w, 1)

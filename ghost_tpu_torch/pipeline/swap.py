@@ -138,7 +138,9 @@ class SwapPipeline:
     def _tensor(self, x):
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
-        return torch.as_tensor(np.asarray(x), device=self.device)
+        # a copy only where numpy's strides are negative (an RGB view of
+        # a BGR image, as cv2's callers pass it), which torch refuses
+        return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
 
     def _params(self, mask_params):
         if mask_params is None or isinstance(mask_params, str):
