@@ -228,16 +228,37 @@ exits non-zero without its result lines:
               --max_darken 2, vgg (2 folders x 4) and gender on seeded
               1080p jpgs with a templated full-width detector: ms an
               image, crop_faces ms; every count 0
+ 24. weights  the weight-conversion and export CLIs
+              (`ghost_tpu_torch/cli/convert.py`, `cli/export.py`) and the
+              single-card rest, on the files of phases 17-23 (the SAM
+              vit_h `.pth` among them) and seeded 2d106det `.params`,
+              WFLW_4HG and VGG19 files: (a) `convert.main(argv)` for all
+              12 kinds, seconds each; each msgpack bridged into its port
+              model on the card gives the output of the tree converted
+              straight from the `.pth` (max abs diff 0): AEI-Net bf16
+              with K1 at batch 8 (42 launches), SRVGG x4v3 on S2 (68);
+              (b) Landmark106Det (32 x 192) f32 card vs CPU and against
+              the MXNet graph interpreter on the card, bf16 ms; (c)
+              FANAWL(4, 98, 256) (8 x 256) f32 card vs CPU, bf16 ms; (d)
+              `export.main(argv)` for AEI-Net and iresnet100: onnx through
+              OnnxExecutor against the eager f32 module, pt2 reloaded at
+              batch 1 and 8 against eager, export s, bytes, ms a call;
+              (e) 2:4 masks card vs CPU, ArcMarginHead(512 -> 85742),
+              colour, quality (iresnet100, VGG19), trace() + annotate()
+              around the pt2 call, StageTimer, flop_estimate, the LSTM
+              beside cuDNN's, GRU, mLSTM, the transducer loss against
+              f64 beside the CPU; peak memory each
 
 Each path (5, 8, 9, 13, 14, each CLI run of 17, 18 and 19, each enhancer
 chunk of 19, each train run of 20, each train CLI run of 21, each CLI
-run of 22 and each run of 23) runs with every launch count set to 0
-just before it and read just after; the counts of 5, 8, 9 and 13 go
-into the kernels line as `launches`, those of 17 and 19's CLI runs as
-`cli_launches`, those of 18 as `route_launches`, those of 19's chunks
-as `enhance_launches`, those of 21 as `train_cli_launches`, those of 22
-as `distill_launches` and `train_extras_launches`, those of 23 as
-`sr_masks_launches`.
+run of 22, each run of 23 and each convert run of 24) runs with every
+launch count set to 0 just before it and read just after; the counts of
+5, 8, 9 and 13 go into the kernels line as `launches`, those of 17 and
+19's CLI runs as `cli_launches`, those of 18 as `route_launches`, those
+of 19's chunks as `enhance_launches`, those of 21 as
+`train_cli_launches`, those of 22 as `distill_launches` and
+`train_extras_launches`, those of 23 as `sr_masks_launches`, those of
+24 as `weights_launches`.
 
 The last two lines are the kernels JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -250,6 +271,7 @@ import copy
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4365,6 +4387,9 @@ def phase_distill(card, files):
         extras = _extras_parity(card, df)
         full, x_out = _extras_full(card, df)
         extras.update(full)
+        if "kept" in files:  # phase 24 converts D and the LIPSPADE G
+            for key in ("D", "sr"):
+                shutil.move(df[key], files["kept"])
     torch.cuda.empty_cache()
     launched = {run: c for run, c in extras.items() if any(c.values())}
     wrong = {run: {k: v for k, v in c.items() if v and k != "conv3x3"}
@@ -5095,7 +5120,7 @@ def _prep_parity(card, f):
     return counts
 
 
-def phase_sr_masks(card, device):
+def phase_sr_masks(card, device, kept=None):
     """Phase 23: the SR-training library (Pix2PixSR's TTUR steps with
     SpectralConv's power iteration, HiFaceGAN, the encoder pretraining)
     and the mask-target and preprocessing CLIs (`python -m
@@ -5103,8 +5128,8 @@ def phase_sr_masks(card, device):
     `main(argv)`: card against CPU at the tests' narrow configs, then the
     reference's sizes. None of the table's kernels runs on these paths
     (cuDNN convs, cuBLAS matmuls, SAM's attention a plain matmul as in
-    JAX): every count must read 0. Returns each run's counts and the
-    numbers."""
+    JAX): every count must read 0. The SAM `.pth` is moved into `kept`
+    when it is given. Returns each run's counts and the numbers."""
     import torch
 
     t0 = time.perf_counter()
@@ -5135,6 +5160,8 @@ def phase_sr_masks(card, device):
             nums.update(n)
             if probe:
                 probes[f"SAM {MASKS['preset']}'s image encoder"] = probe[0]
+        if kept:  # phase 24 converts the SAM checkpoint
+            shutil.move(f["sam"], kept)
     # last: a profiler session can slow the host for the rest of the
     # process
     with torch.inference_mode(False):
@@ -5147,6 +5174,673 @@ def phase_sr_masks(card, device):
         f"launched a kernel of the table: {launched} ({card})")
     if launched:
         raise AssertionError(f"phase 23 launched kernels: {launched}")
+    return counts, nums
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the weight-conversion and export CLIs, the MXNet 2d106det net,
+# the AdaptiveWingLoss FAN and the single-card remainder
+# ---------------------------------------------------------------------------
+
+# batches and sizes of phase 24: the converted AEI-Net at the swap's chunk
+# (fused AAD, bf16), Landmark106Det's and FANAWL's batches, the export's
+# reload batches, ArcMarginHead over MS1MV2's 85,742 identities, the LSTM
+# of scripts/profile_rnn.py:15-17 and the transducer lattice of
+# scripts/profile_transducer.py:26
+WEIGHTS = dict(aei_batch=8, lmk_batch=32, fan_batch=8, export_batches=(1, 8),
+               margin=(512, 85742, 64), rnn=(256, 32, 512, 2),
+               transducer=(16, 128, 64, 128), iters=10)
+K1_PER_PASS = 21  # AAD layers of the full-width unet 2-block generator
+
+
+def weights_files(d, files, card):
+    """Phase 24's checkpoints. Reused: phase 17's G (unet 2 blocks) and
+    iresnet100 `backbone.pth`, phase 18's mmdet SCRFD 2.5GF `.pth`, phase
+    19's GFPGANv1.4, RealESRGAN_x4plus and realesr-general-x4v3 `.pth`,
+    phase 22's D and LIPSPADE `10_net_G.pth` and phase 23's SAM vit_h
+    `.pth` (both kept under `files["kept"]`). Written here (seeded): a
+    2d106det symbol JSON and its `.params` file (the port's MXNet
+    writer), a WFLW_4HG-layout FAN `.pth` (4 modules, 98+1 heatmaps, 256
+    features) and a torchvision VGG19 `.pth`. Returns {kind: (src,
+    flags)} for the convert CLI, and the symbol's path."""
+    import numpy as np
+
+    from ghost_tpu_torch.convert import mxnet_graph, mxnet_nd
+
+    cin = _test_inputs("torch_cli_inputs")
+    win = _test_inputs("torch_weight_inputs")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(24)
+    symbol = win.write_symbol_2d106det(f"{d}/2d106det-symbol.json")
+    params = mxnet_graph.MXNetGraphInterpreter(
+        symbol, device="cpu").init_params(seed=24)
+    mxnet_nd.save_ndarray_dict(f"{d}/2d106det-0000.params",
+                               win.prefixed(params))
+    cin.save_pth(f"{d}/WFLW_4HG.pth", win.fan_awl_state_dict(rng))
+    cin.save_pth(f"{d}/vgg19.pth", win.vgg19_state_dict(rng))
+    k, src = files["kept"], files["dir"]
+    kinds = {
+        "aei": (files["G"], []),
+        "arcface": (files["arc"], []),
+        "discriminator": (f"{k}/D_unet_2blocks.pth", []),
+        "spade": (f"{k}/10_net_G.pth", []),
+        "scrfd": (f"{src}/SCRFD_2_5GF.pth", []),
+        "landmark_mxnet": (f"{d}/2d106det-0000.params", []),
+        "vgg19": (f"{d}/vgg19.pth", []),
+        "gfpgan": (f"{src}/GFPGANv1.4.pth", []),
+        "rrdb": (f"{src}/RealESRGAN_x4plus.pth", []),
+        "srvgg": (f"{src}/realesr-general-x4v3.pth", []),
+        "sam": (f"{k}/sam_{MASKS['preset']}.pth",
+                ["--sam_preset", MASKS["preset"]]),
+        "fan": (f"{d}/WFLW_4HG.pth", []),
+    }
+    log(f"weights: wrote the 2d106det symbol and .params, WFLW_4HG.pth and "
+        f"vgg19.pth in {time.perf_counter() - t0:.1f} s ({card})")
+    return kinds, symbol
+
+
+def _flat_tensors(out):
+    """The tensors of a nested output (tuples, lists, dicts), in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if out is None:
+        return []
+    if isinstance(out, dict):
+        out = list(out.values())
+    return [t for o in out for t in _flat_tensors(o)]
+
+
+def _weights_case(kind, device):
+    """(module on `device`, its inputs, fn(module, inputs) -> output) of
+    the port model a `--kind` tree loads into, at the serving policy
+    (bf16 compute; AEI-Net with the fused AAD kernel)."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY as P
+
+    g = np.random.default_rng(240)
+
+    def u(lo, hi, *shape):
+        return torch.from_numpy(g.uniform(lo, hi, shape).astype(
+            np.float32)).to(device)
+
+    b = WEIGHTS["aei_batch"]
+    if kind == "aei":
+        from ghost_tpu_torch.models.aei import AEINet
+
+        z = torch.nn.functional.normalize(u(-1, 1, b, 512), dim=-1)
+        return (AEINet(policy=P, fused_aad=True, device=device),
+                (u(-1, 1, b, 256, 256, 3), z), lambda m, a: m(*a)[0])
+    if kind == "arcface":
+        from ghost_tpu_torch.models.arcface import iresnet100
+
+        return iresnet100(policy=P, device=device), (u(-1, 1, b, 112, 112,
+                                                       3),), None
+    if kind == "discriminator":
+        from ghost_tpu_torch.models.discriminator import \
+            MultiscaleDiscriminator
+
+        return (MultiscaleDiscriminator(n_layers=5, num_D=3, policy=P,
+                                        device=device),
+                (u(-1, 1, 4, 256, 256, 3),), None)
+    if kind == "spade":
+        from ghost_tpu_torch.models.sr.generator import LIPSPADEGenerator
+
+        return (LIPSPADEGenerator(policy=P, device=device),
+                (u(-1, 1, 4, 256, 256, 3),), None)
+    if kind == "scrfd":
+        from ghost_tpu_torch.models.scrfd_v1e import SCRFDV1e
+
+        return SCRFDV1e(policy=P, device=device), (u(-1, 1, 2, 640, 640,
+                                                     3),), None
+    if kind == "landmark_mxnet":
+        from ghost_tpu_torch.models.landmark_mxnet import Landmark106Det
+
+        return (Landmark106Det(policy=P, device=device),
+                (u(0, 255, WEIGHTS["lmk_batch"], 192, 192, 3),), None)
+    if kind == "vgg19":
+        from ghost_tpu_torch.models.sr.vgg import VGG19Features
+
+        return VGG19Features(policy=P, device=device), (u(-2, 2, 4, 256, 256,
+                                                          3),), None
+    if kind == "gfpgan":
+        from ghost_tpu_torch.models.sr.gfpgan import GFPGANClean
+
+        return GFPGANClean(policy=P, device=device), (u(-1, 1, 2, 512, 512,
+                                                        3),), None
+    if kind == "rrdb":
+        from ghost_tpu_torch.models.sr.rrdb import RRDBNet
+
+        return RRDBNet(policy=P, device=device), (u(0, 1, 2, 64, 64, 3),), \
+            None
+    if kind == "srvgg":
+        from ghost_tpu_torch.models.sr.srvgg import SRVGGNetCompact
+
+        return (SRVGGNetCompact(policy=P, device=device),
+                (u(0, 1, 2, 64, 64, 3),), None)
+    if kind == "sam":
+        from ghost_tpu_torch.models.sam import build_sam
+
+        return (build_sam(MASKS["preset"], policy=P, device=device),
+                (u(-2, 2, 1, 1024, 1024, 3),),
+                lambda m, a: m.image_encoder(*a))
+    if kind == "fan":
+        from ghost_tpu_torch.models.fan_awl import FANAWL
+
+        return FANAWL(policy=P, device=device), (u(0, 1, WEIGHTS[
+            "fan_batch"], 256, 256, 3),), None
+    raise ValueError(kind)
+
+
+def _bridged(module, kind, tree):
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+
+    if kind == "gfpgan":
+        from ghost_tpu_torch.models.sr.gfpgan import drop_unread_leaves
+
+        tree, _ = drop_unread_leaves(tree, module)
+    return load_flax_variables(module, tree)
+
+
+def _weights_convert(card, device, kinds, d):
+    """(a) `convert.main(argv)` for every --kind, seconds each; each
+    msgpack bridged into its port model on the card gives the output of
+    the same model loaded from the tree converted straight from the
+    `.pth` (the same code path), max abs diff 0; AEI-Net in bf16 with
+    the fused AAD kernel at batch 8, K1 counted, and the SRVGG x4v3
+    model on S2. Returns (counts, {kind: seconds}, {kind: msgpack
+    path})."""
+    import torch
+
+    from ghost_tpu_torch.cli import convert
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+
+    counts, secs, outs = {}, {}, {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind, (src, flags) in kinds.items():
+            argv = ["--kind", kind, "--src", src, "--out",
+                    f"{d}/{kind}.msgpack"] + flags
+            wall, lines, _ = _cli_call(lambda: convert.main(argv))
+            secs[kind], outs[kind] = wall, f"{d}/{kind}.msgpack"
+            msg = load_msgpack(outs[kind])
+            direct = convert.convert_tree(convert.build_parser().parse_args(
+                argv))
+            module, args, fn = _weights_case(kind, device)
+            module.eval()
+            fn = fn or (lambda m, a: m(*a))
+            zero_counts()
+            got = []
+            with torch.inference_mode():
+                for tree in (msg, direct):
+                    _bridged(module, kind, tree)
+                    got.append([t.float() for t in _flat_tensors(
+                        fn(module, args))])
+            torch.cuda.synchronize()
+            counts[f"convert {kind}"] = read_counts()
+            diff = max(float((a - b).abs().max())
+                       for a, b in zip(*got))
+            finite = all(bool(torch.isfinite(t).all()) for t in got[0])
+            log(f"weights: convert --kind {kind}: {wall:.2f} s, "
+                f"{Path(src).stat().st_size / 2 ** 20:.1f} MiB -> "
+                f"{Path(outs[kind]).stat().st_size / 2 ** 20:.1f} MiB "
+                f"({lines[-1].split(': ')[-1]}); msgpack vs .pth tree on "
+                f"the card: {len(got[0])} outputs, max abs diff {diff} "
+                f"(must be 0), finite {finite}; launches "
+                f"{_launched(counts[f'convert {kind}'])} ({card})")
+            if diff != 0 or not finite:
+                raise AssertionError(f"weights: convert {kind}: msgpack "
+                                     f"output differs by {diff}")
+            del module, msg, direct, got
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    # two passes each: K1 in the generator's AAD layers, S2 in
+    # realesr-general-x4v3's 34 convs (SRVGGNetCompact on Conv3x3)
+    want = {("convert aei", "aad_modulate"): 2 * K1_PER_PASS,
+            ("convert srvgg", "conv3x3"): 2 * sum(S2_SRVGG_TILE.values())}
+    wrong = {(run, name): v for run, c in counts.items()
+             for name, v in c.items() if v != want.get((run, name), 0)}
+    if wrong:
+        raise AssertionError(f"weights: launches {wrong}, expected {want}")
+    return counts, secs, outs
+
+
+def _launched(c):
+    """The kernels of a count dict that launched, or "none"."""
+    return {k: v for k, v in c.items() if v} or "none"
+
+
+def _rel(got, ref):
+    return float((got.float().cpu() - ref.float().cpu()).abs().max()
+                 / max(ref.float().abs().max().item(), 1e-12))
+
+
+def _card_vs_cpu(card, what, cpu_mod, x, tol=1e-4):
+    """f32: the module on the card against itself on the CPU, relative
+    to the output's scale."""
+    import torch
+
+    card_mod = copy.deepcopy(cpu_mod).cuda()
+    with torch.inference_mode():
+        ref = _flat_tensors(cpu_mod(x))
+        got = _flat_tensors(card_mod(x.cuda()))
+    err = max(_rel(g, r) for g, r in zip(got, ref))
+    log(f"weights: {what} f32 card vs CPU: max err {err:.2e} of scale "
+        f"(<= {tol:g}) ({card})")
+    if err > tol:
+        raise AssertionError(f"weights: {what}: card vs CPU {err:.2e}")
+    return card_mod, got
+
+
+def _weights_landmark_fan(card, device, outs, symbol, kinds):
+    """(b) Landmark106Det at batch 32, 192 px: f32 card vs CPU, and
+    against the port's MXNetGraphInterpreter on the card over the
+    symbol JSON; bf16 ms a batch. (c) FANAWL(4, 98, 256) at 256 px, batch
+    8: f32 card vs CPU; bf16 ms a batch."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.mxnet_graph import MXNetGraphInterpreter
+    from ghost_tpu_torch.convert.mxnet_nd import load_ndarray_dict
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from ghost_tpu_torch.models.fan_awl import FANAWL
+    from ghost_tpu_torch.models.landmark_mxnet import Landmark106Det
+
+    nums = {}
+    g = np.random.default_rng(241)
+    tree = load_msgpack(outs["landmark_mxnet"])
+    x = torch.from_numpy(g.uniform(0, 255, (WEIGHTS["lmk_batch"], 192, 192,
+                                            3)).astype(np.float32))
+    cpu = load_flax_variables(Landmark106Det(policy=FULL_PRECISION),
+                              tree).eval()
+    card_mod, got = _card_vs_cpu(card, "Landmark106Det (32x192)", cpu, x)
+    bare = {k.split(":", 1)[1]: v for k, v in load_ndarray_dict(
+        kinds["landmark_mxnet"][0]).items()}
+    interp = MXNetGraphInterpreter(symbol, device=device)
+    ref = interp.run(bare, x.cuda().permute(0, 3, 1, 2))
+    err = _rel(got[0].reshape(ref.shape), ref)
+    ms_interp = _time_one(lambda: interp.run(bare, x.cuda().permute(
+        0, 3, 1, 2)), 3, device)
+    bf = load_flax_variables(Landmark106Det(policy=DEFAULT_POLICY,
+                                            device=device), tree).eval()
+    xc = x.cuda()
+    with torch.inference_mode():
+        ms = _time_one(lambda: bf(xc), WEIGHTS["iters"], device)
+        bf_err = _rel(bf(xc), ref.reshape(-1, 106, 2))
+    nums["landmark_bf16_ms"] = ms
+    log(f"weights: Landmark106Det f32 on the card vs the MXNet graph "
+        f"interpreter on the card: max err {err:.2e} of scale (<= 1e-4); "
+        f"bf16 {ms:.3f} ms a batch of {WEIGHTS['lmk_batch']} (its error "
+        f"vs the f32 graph {bf_err:.2e} of scale), the interpreter "
+        f"{ms_interp:.3f} ms ({card})")
+    if err > 1e-4:
+        raise AssertionError(f"weights: Landmark106Det vs graph {err:.2e}")
+    del card_mod, bf, interp
+    tree = load_msgpack(outs["fan"])
+    x = torch.from_numpy(g.uniform(0, 1, (WEIGHTS["fan_batch"], 256, 256,
+                                          3)).astype(np.float32))
+    cpu = load_flax_variables(FANAWL(policy=FULL_PRECISION), tree).eval()
+    card_mod, got = _card_vs_cpu(card, "FANAWL(4, 98, 256) (8x256)", cpu, x)
+    bf = load_flax_variables(FANAWL(policy=DEFAULT_POLICY, device=device),
+                             tree).eval()
+    xc = x.cuda()
+    with torch.inference_mode():
+        ms = _time_one(lambda: bf(xc), WEIGHTS["iters"], device)
+        bf_err = max(_rel(a, b) for a, b in zip(bf(xc), got))
+    nums["fan_bf16_ms"] = ms
+    keep = float((torch.clamp(got[0][..., -1], 0, 1) > 0.05).float().mean())
+    log(f"weights: FANAWL bf16 {ms:.3f} ms a batch of {WEIGHTS['fan_batch']}"
+        f" (its error vs f32 {bf_err:.2e} of scale); share of stack 1's "
+        f"boundary map past the 0.05 gate {keep:.3f} ({card})")
+    return nums
+
+
+def _weights_export(card, device, files, d):
+    """(d) `export.main(argv)` for full-width AEI-Net (G) and iresnet100
+    (backbone.pth): onnx through the port's OnnxExecutor on the card
+    against the eager module in f32; pt2 reloaded with torch.export.load
+    and run at batch 1 and 8 against the eager module at the same policy
+    (DEFAULT_POLICY), within 1e-3 of scale (eager's own bf16 error
+    against its f32 twin beside it). Export seconds, file bytes, ms a
+    call of the reloaded program beside eager (batch 8). Returns
+    (numbers, the AEI program, its inputs at batch 8)."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.cli import export
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.convert.onnx_exec import OnnxExecutor
+    from ghost_tpu_torch.convert.onnx_reader import read_onnx_graph
+    from ghost_tpu_torch.core.precision import FULL_PRECISION
+    from ghost_tpu_torch.models.aei import AEINet
+    from ghost_tpu_torch.models.arcface import iresnet100
+
+    g = np.random.default_rng(242)
+    nums, keep = {}, {}
+    for model, flags in (("aei", ["--G_path", files["G"]]),
+                         ("arcface", ["--arcface_path", files["arc"]])):
+        args = export.build_parser().parse_args(["--model", model, "--out",
+                                                 "x"] + flags)
+        eager, tree, _ = export.build_module(args, device)
+        if model == "aei":
+            f32 = AEINet(policy=FULL_PRECISION, device=device)
+            y_of, shape, names = export.GeneratorY, (256, 256, 3), ("xt",
+                                                                  "z_id")
+        else:
+            f32 = iresnet100(policy=FULL_PRECISION, device=device)
+            y_of, shape, names = (lambda m: m), (112, 112, 3), ("input",)
+        f32 = load_flax_variables(f32, tree).eval()
+        xs = torch.from_numpy(g.uniform(-1, 1, (8,) + shape).astype(
+            np.float32)).to(device)
+        zs = torch.nn.functional.normalize(torch.from_numpy(g.normal(
+            0, 1, (8, 512)).astype(np.float32)), dim=-1).to(device)
+        inputs = (xs, zs) if model == "aei" else (xs,)
+        # onnx, f32, batch 2 against the eager f32 module
+        p = f"{d}/{model}.onnx"
+        wall, _, _ = _cli_call(lambda: export.main(
+            ["--model", model, "--format", "onnx", "--out", p] + flags))
+        ex = OnnxExecutor(read_onnx_graph(p), device=device)
+        with torch.inference_mode():
+            ref = y_of(f32)(*[t[:2] for t in inputs])
+            feeds = dict(zip(names, [
+                t[:2].permute(0, 3, 1, 2) if t.ndim == 4 else t[:2]
+                for t in inputs]))
+            out = ex(feeds)[0]
+            out = out.permute(0, 2, 3, 1) if out.ndim == 4 else out
+            err = _rel(out, ref)
+        nums[f"{model}_onnx"] = (wall, Path(p).stat().st_size, err)
+        log(f"weights: export {model} --format onnx: {wall:.2f} s, "
+            f"{Path(p).stat().st_size} bytes; OnnxExecutor on the card vs "
+            f"the eager f32 module (batch 2): max err {err:.2e} of scale "
+            f"(<= 1e-4) ({card})")
+        if err > 1e-4:
+            raise AssertionError(f"weights: {model} onnx {err:.2e}")
+        del ex
+        # pt2 at DEFAULT_POLICY
+        p = f"{d}/{model}.pt2"
+        wall, _, _ = _cli_call(lambda: export.main(
+            ["--model", model, "--out", p] + flags))
+        t0 = time.perf_counter()
+        prog = torch.export.load(p).module()
+        load_s = time.perf_counter() - t0
+        errs = []
+        with torch.inference_mode():
+            for b in WEIGHTS["export_batches"]:
+                a = [t[:b] for t in inputs]
+                got, want, want32 = prog(*a), y_of(eager)(*a), y_of(f32)(*a)
+                own = _rel(want, want32)
+                errs.append((b, _rel(got, want), own))
+            ms_prog = _time_one(lambda: prog(*inputs), WEIGHTS["iters"],
+                                device)
+            ms_eager = _time_one(lambda: y_of(eager)(*inputs),
+                                 WEIGHTS["iters"], device)
+        nums[f"{model}_pt2"] = (wall, Path(p).stat().st_size, load_s,
+                                ms_prog, ms_eager, errs)
+        log(f"weights: export {model} --format pt2: {wall:.2f} s, "
+            f"{Path(p).stat().st_size} bytes, torch.export.load + module() "
+            f"{load_s:.2f} s; the reloaded program vs eager (bf16): "
+            + ", ".join(f"batch {b} max err {e:.2e} of scale (eager's own "
+                        f"bf16 error vs f32 {o:.2e})" for b, e, o in errs)
+            + f" (<= 1e-3); batch 8: program {ms_prog:.3f} ms, eager "
+            f"{ms_eager:.3f} ms a call ({card})")
+        # the same aten ops on the same inputs: equal up to an algorithm
+        # choice, far inside eager's own bf16 error
+        if any(e > 1e-3 for _, e, _ in errs):
+            raise AssertionError(f"weights: {model} pt2 vs eager {errs}")
+        if model == "aei":
+            keep = {"prog": prog, "inputs": inputs}
+        del eager, f32
+        torch.cuda.empty_cache()
+    return nums, keep
+
+
+def _weights_rest(card, device, outs, pt2, d):
+    """(e) 2:4 masks of full-width AEI-Net (card equal to CPU),
+    ArcMarginHead over 85,742 classes, the colour losses, id_similarity,
+    psnr and perceptual_distance, the pt2 call inside trace() +
+    annotate("phase24"), StageTimer and flop_estimate, the LSTM beside
+    cuDNN's, GRU and mLSTM, the transducer loss forward + backward. Peak
+    memory each."""
+    import numpy as np
+    import torch
+
+    from ghost_tpu_torch.convert.from_jax import load_flax_variables
+    from ghost_tpu_torch.core.checkpoint import load_msgpack
+    from ghost_tpu_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from ghost_tpu_torch.models.aei import AEINet
+    from ghost_tpu_torch.models.arcface import iresnet100
+    from ghost_tpu_torch.models.sr.vgg import VGG19Features
+    from ghost_tpu_torch.nn import rnn, transducer
+    from ghost_tpu_torch.nn.layers import init_weights
+    from ghost_tpu_torch.train import color, sparsity
+    from ghost_tpu_torch.train.arcface_margin import ArcMarginHead
+    from ghost_tpu_torch.utils import profiling, quality
+
+    g = np.random.default_rng(243)
+    timer = profiling.StageTimer()
+    nums = {}
+
+    def peak(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        with timer.stage(name):
+            out = fn()
+            torch.cuda.synchronize()
+        nums[f"{name}_peak_gib"] = (torch.cuda.max_memory_allocated(device)
+                                    - base) / 2 ** 30
+        return out
+
+    # 2:4 masks
+    tree = load_msgpack(outs["aei"])
+    gen = load_flax_variables(AEINet(policy=DEFAULT_POLICY, device=device),
+                              tree)
+    masks = peak("masks", lambda: sparsity.compute_masks(gen))
+    cpu_masks = sparsity.compute_masks(copy.deepcopy(gen).cpu())
+    same = all(bool(torch.equal(masks[k].cpu(), cpu_masks[k]))
+               for k in masks)
+    ms = _time_one(lambda: sparsity.compute_masks(gen), 2, device)
+    ratio = sparsity.sparsity_ratio(masks)
+    log(f"weights: 2:4 masks of full-width AEI-Net ({len(masks)} "
+        f"parameters, {sum(m.numel() for m in masks.values())} values): "
+        f"card equal to CPU {same}; sparsity_ratio {ratio:.6f}; "
+        f"compute_masks {ms:.1f} ms on the card ({card})")
+    if not same:
+        raise AssertionError("weights: 2:4 masks card vs CPU")
+    del gen, masks, cpu_masks
+    # ArcMarginHead
+    dim, classes, b = WEIGHTS["margin"]
+    head = init_weights(ArcMarginHead(dim, classes),
+                        torch.Generator().manual_seed(24)).eval()
+    emb = torch.from_numpy(g.normal(0, 1, (b, dim)).astype(np.float32))
+    lab = torch.from_numpy(g.integers(0, classes, b))
+    card_head = copy.deepcopy(head).cuda()
+    with torch.inference_mode():
+        ref = head(emb, lab)
+        got = peak("margin", lambda: card_head(emb.cuda(), lab.cuda()))
+        ms = _time_one(lambda: card_head(emb.cuda(), lab.cuda()),
+                       WEIGHTS["iters"], device)
+    err = _rel(got, ref)
+    log(f"weights: ArcMarginHead({dim} -> {classes}) batch {b} f32: card vs "
+        f"CPU max err {err:.2e} of scale (<= 1e-5); {ms:.3f} ms ({card})")
+    if err > 1e-5:
+        raise AssertionError(f"weights: ArcMarginHead {err:.2e}")
+    del head, card_head
+    # colour
+    img = torch.from_numpy(g.uniform(-1, 1, (8, 256, 256, 3)).astype(
+        np.float32))
+    errs = []
+    for fn in (lambda x: color.get_hsv(x),
+               lambda x: color.hsv_to_rgb(color.get_hsv(x)),
+               lambda x: color.color_consistency_loss(x),
+               lambda x: color.stuck_loss(x, (64, 64, 128, 128))):
+        errs.append(_rel(peak("colour", lambda: fn(img.cuda())), fn(img)))
+    log(f"weights: colour functions (get_hsv, the HSV round trip, "
+        f"color_consistency_loss, stuck_loss) at 8x256: card vs CPU max "
+        f"err {max(errs):.2e} of scale (<= 1e-5) ({card})")
+    if max(errs) > 1e-5:
+        raise AssertionError(f"weights: colour {errs}")
+    # quality
+    arc = load_flax_variables(iresnet100(policy=FULL_PRECISION),
+                              load_msgpack(outs["arcface"])).eval()
+    vgg = load_flax_variables(VGG19Features(policy=FULL_PRECISION),
+                              load_msgpack(outs["vgg19"])).eval()
+    a = torch.from_numpy(g.uniform(-1, 1, (4, 256, 256, 3)).astype(
+        np.float32))
+    bimg = (a + 0.1 * torch.from_numpy(g.normal(0, 1, a.shape).astype(
+        np.float32))).clamp(-1, 1)
+    u8a = ((a + 1) * 127.5).to(torch.uint8)
+    u8b = ((bimg + 1) * 127.5).to(torch.uint8)
+    carc, cvgg = copy.deepcopy(arc).cuda(), copy.deepcopy(vgg).cuda()
+    with torch.inference_mode():
+        q_cpu = (quality.id_similarity(arc, a, bimg), quality.psnr(u8a, u8b),
+                 quality.perceptual_distance(vgg, a, bimg))
+        q_card = peak("quality", lambda: (
+            quality.id_similarity(carc, a.cuda(), bimg.cuda()),
+            quality.psnr(u8a.cuda(), u8b.cuda()),
+            quality.perceptual_distance(cvgg, a.cuda(), bimg.cuda())))
+    errs = [_rel(x, y) for x, y in zip(q_card, q_cpu)]
+    log(f"weights: quality at 4x256 f32: id_similarity (iresnet100) "
+        f"{q_card[0].cpu().numpy().round(4).tolist()}, psnr "
+        f"{q_card[1].cpu().numpy().round(3).tolist()} dB, "
+        f"perceptual_distance (VGG19) "
+        f"{q_card[2].cpu().numpy().round(5).tolist()}; card vs CPU max err "
+        f"{max(errs):.2e} of scale (<= 1e-4) ({card})")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"weights: quality {errs}")
+    # flop_estimate of iresnet100 at batch 1
+    cost = profiling.flop_estimate(carc, torch.zeros(1, 112, 112, 3,
+                                                     device=device))
+    del arc, vgg, carc, cvgg
+    torch.cuda.empty_cache()
+    # the pt2 call inside trace() + annotate()
+    logdir = f"{d}/trace"
+    with torch.inference_mode(), profiling.trace(logdir):
+        with profiling.annotate("phase24"):
+            pt2["prog"](*pt2["inputs"])
+        torch.cuda.synchronize()
+    path = Path(logdir) / profiling.TRACE_FILE
+    text = path.read_text() if path.exists() else ""
+    has_cuda = '"cat": "kernel"' in text or "cuda" in text.lower()
+    log(f"weights: trace() + annotate('phase24') around the pt2 AEI-Net "
+        f"call: {path.name} {path.stat().st_size if path.exists() else 0} "
+        f"bytes, holds 'phase24' {'phase24' in text}, device kernels "
+        f"{has_cuda}; flop_estimate(iresnet100, batch 1): "
+        f"{cost['flops'] / 1e9:.3f} GFLOP, "
+        f"{cost['bytes_accessed'] / 2 ** 20:.1f} MiB of aten operands "
+        f"(unfused) ({card})")
+    if "phase24" not in text:
+        raise AssertionError("weights: the trace lacks the annotation")
+    nums["iresnet100_gflop"] = cost["flops"] / 1e9
+    # the RNNs
+    t, b, h, layers = WEIGHTS["rnn"]
+    gen_ = torch.Generator().manual_seed(25)
+    params = rnn.init_rnn_params(gen_, "lstm", h, h, layers, device=device)
+    x = torch.from_numpy(g.normal(0, 1, (t, b, h)).astype(np.float32)).to(
+        device)
+    ref_mod = torch.nn.LSTM(h, h, layers).to(device)
+    with torch.no_grad():
+        for li, p in enumerate(params):
+            for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                getattr(ref_mod, name.replace("w_", "weight_").replace(
+                    "b_", "bias_") + f"_l{li}").copy_(getattr(p, name))
+    with torch.inference_mode():
+        y, _ = peak("lstm", lambda: rnn.lstm(params, x))
+        y_ref, _ = ref_mod(x)
+        ms = _time_one(lambda: rnn.lstm(params, x), 3, device)
+        ms_ref = _time_one(lambda: ref_mod(x), WEIGHTS["iters"], device)
+        err = float((y - y_ref).abs().max())
+        others = {}
+        for kind in ("gru", "mlstm"):
+            pk = rnn.init_rnn_params(gen_, kind, h, h, layers, device=device)
+            out, _ = rnn.rnn_forward(kind, pk, x)
+            others[kind] = (tuple(out.shape), bool(torch.isfinite(out).all()))
+    nums["lstm_ms"], nums["lstm_cudnn_ms"] = ms, ms_ref
+    log(f"weights: LSTM T{t} B{b} H{h} {layers} layers f32 forward "
+        f"{ms:.2f} ms (torch.nn.LSTM, cuDNN: {ms_ref:.3f} ms; max abs diff "
+        f"{err:.2e}, <= 1e-4); GRU and mLSTM once: {others} ({card})")
+    if err > 1e-4 or not all(v[1] for v in others.values()):
+        raise AssertionError(f"weights: RNN {err} {others}")
+    # the transducer loss
+    bt, tt, ut, vt = WEIGHTS["transducer"]
+    lp = torch.log_softmax(torch.from_numpy(g.normal(0, 1, (
+        bt, tt, ut + 1, vt)).astype(np.float32)), -1)
+    labels = torch.from_numpy(g.integers(1, vt, (bt, ut)))
+    f_len = torch.full((bt,), tt)
+    y_len = torch.full((bt,), ut)
+
+    def fwd_bwd(lp_, dev):
+        x_ = lp_.detach().to(dev).requires_grad_(True)
+        loss = transducer.transducer_loss(x_, labels.to(dev), f_len.to(dev),
+                                          y_len.to(dev))
+        loss.sum().backward()
+        return loss.detach(), x_.grad
+
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = fwd_bwd(lp, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    l64, g64 = fwd_bwd(lp.double(), "cpu")
+    l_card, g_card = peak("transducer", lambda: fwd_bwd(lp, device))
+    ms = _time_one(lambda: fwd_bwd(lp, device), 3, device)
+    # each f32 run against the f64 one: the card within 2x the CPU's own
+    # f32 error (191 sequential logaddexp steps accumulate rounding)
+    errs = {"card": (_rel(l_card, l64), _rel(g_card, g64)),
+            "cpu": (_rel(l_cpu, l64), _rel(g_cpu, g64))}
+    nums["transducer_ms"], nums["transducer_cpu_ms"] = ms, cpu_ms
+    log(f"weights: transducer loss B{bt} T{tt} U{ut} V{vt} forward + "
+        f"backward: card {ms:.2f} ms, CPU {cpu_ms:.1f} ms; against f64 "
+        f"(loss, grad, of scale): card {errs['card'][0]:.2e}, "
+        f"{errs['card'][1]:.2e}; CPU {errs['cpu'][0]:.2e}, "
+        f"{errs['cpu'][1]:.2e} (card <= 2x CPU + 1e-7) ({card})")
+    if any(c > 2 * r + 1e-7 for c, r in zip(errs["card"], errs["cpu"])):
+        raise AssertionError(f"weights: transducer {errs}")
+    log(f"weights: StageTimer.report() ({card}):\n" + timer.report())
+    log("weights: peak memory above the phase's resident tensors: "
+        + ", ".join(f"{k[:-9]} {v:.3f} GiB" for k, v in nums.items()
+                    if k.endswith("_peak_gib")) + f" ({card})")
+    return nums
+
+
+def phase_weights(card, device, files):
+    """Phase 24: the weight-conversion and export CLIs (`python -m
+    ghost_tpu_torch.cli.convert`, `cli.export`) on the card and the
+    single-card remainder of the port: (a) convert every --kind, each
+    msgpack bridged and run on the card against the `.pth` tree (K1 in
+    the converted generator); (b) Landmark106Det against the MXNet graph
+    interpreter; (c) FANAWL; (d) onnx and pt2 exports; (e) masks, the
+    margin head, colour, quality, profiling, RNNs and the transducer.
+    Returns the runs' counts (K1 in the converted generator only) and
+    the numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    d = f"{files['dir']}/weights24"
+    Path(d).mkdir()
+    kinds, symbol = weights_files(d, files, card)
+    counts, secs, outs = _weights_convert(card, device, kinds, d)
+    nums = {"convert_s": secs}
+    nums.update(_weights_landmark_fan(card, device, outs, symbol, kinds))
+    zero_counts()
+    export_nums, pt2 = _weights_export(card, device, files, d)
+    nums.update(export_nums)
+    nums.update(_weights_rest(card, device, outs, pt2, d))
+    counts["export and the rest"] = read_counts()
+    del pt2
+    torch.cuda.empty_cache()
+    if any(counts["export and the rest"].values()):
+        raise AssertionError(f"weights: launches {counts}")
+    log(f"weights: phase 24 in {time.perf_counter() - t0:.1f} s; convert "
+        f"seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; K1 launches in the converted generator's two passes "
+        f"{counts['convert aei']['aad_modulate']}, S2 in SRVGG x4v3's "
+        f"{counts['convert srvgg']['conv3x3']} ({card})")
     return counts, nums
 
 
@@ -5185,6 +5879,8 @@ def main(argv):
     phase_k1_device(device, card, stats["aad_modulate"])
     with tempfile.TemporaryDirectory() as d:
         files = cli_files(d)
+        files["kept"] = f"{d}/kept"  # checkpoints phase 24 converts
+        Path(files["kept"]).mkdir()
         cli = phase_cli(card, files)
         routes = phase_routes(card, files)
         enhance, enhance_cli = phase_enhance(card, files, cli)
@@ -5192,7 +5888,8 @@ def main(argv):
         phase_gan(device, card)
         train_cli = phase_train_cli(card, files)
         distill, extras = phase_distill(card, files)
-    sr_masks, _ = phase_sr_masks(card, device)
+        sr_masks, _ = phase_sr_masks(card, device, files["kept"])
+        weights, _ = phase_weights(card, device, files)
     log(f"total {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -5225,7 +5922,11 @@ def main(argv):
                         # each SR-training, mask-target and
                         # preprocessing run of phase 23 (all 0)
                         "sr_masks_launches": {run: c[name] for run, c
-                                              in sr_masks.items()}})
+                                              in sr_masks.items()},
+                        # each convert run of phase 24 (K1 in the
+                        # converted generator) and its exports and rest
+                        "weights_launches": {run: c[name] for run, c
+                                             in weights.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,9 @@ levels that `ghost_tpu/nn/layers.py` adds (`Conv_0`, `Dense_0`,
                   PromptEncoder pe_gauss, point_embed_{i}, not_a_point,
                   no_mask_embed, MaskDecoder iou_token/mask_tokens;
                   LayerNorm2d's and the bare flax LayerNorms' scale/bias
+  Landmark106Det  fc1, a bare flax Dense (no wrapper level); its
+                  BatchNorms have no scale (MXNet's fix_gamma)
+  ArcMarginHead   weight (D, C), a bare param at the module's own level
 
 Collections read: params, batch_stats, spectral. The bridge is strict: every port tensor is filled exactly once and
 every flax leaf is used exactly once, or it raises.
@@ -64,6 +67,7 @@ from torch import nn
 
 from ghost_tpu_torch.models.arcface import IResNet
 from ghost_tpu_torch.models.landmark import Landmark106
+from ghost_tpu_torch.models.landmark_mxnet import Landmark106Det
 from ghost_tpu_torch.models.sam import (ImageEncoderViT, LayerNorm,
                                         LayerNorm2d, MaskDecoder,
                                         PromptEncoder, VitAttention)
@@ -78,6 +82,7 @@ from ghost_tpu_torch.nn.layers import (BatchNorm, Conv, Conv3x3, ConvTranspose,
                                        Dense, GroupNorm, PReLU)
 from ghost_tpu_torch.nn.modules import (MLP, MultiheadAttention,
                                         WeightNormDense)
+from ghost_tpu_torch.train.arcface_margin import ArcMarginHead
 
 _WRAPPERS = frozenset({"Conv_0", "Dense_0", "BatchNorm_0"})
 # the wrapper level flax's tree holds under each of nn.layers' layers
@@ -118,7 +123,7 @@ _BARE_LAYERS = frozenset(
     + [(MultiheadAttention, n) for n in ("q_proj", "k_proj", "v_proj",
                                          "out_proj")]
     + [(IResNet, "features"), (Landmark106, "fc"), (ConvEncoder, "fc_mu"),
-       (ConvEncoder, "fc_var")])
+       (ConvEncoder, "fc_var"), (Landmark106Det, "fc1")])
 # the inverse of each layout change of _LEAF_MAP
 _UNDO = {(Conv, "kernel"): lambda v: v.transpose(2, 3, 1, 0),
          (ConvTranspose, "kernel"): lambda v: v.transpose(2, 3, 0, 1),
@@ -130,7 +135,8 @@ _COLLECTION = {"mean": "batch_stats", "var": "batch_stats", "u": "spectral",
 # modules whose own bare parameters are flax leaves of the same name
 _BARE_PARAMS = (SRVGGNetCompact, SimplifiedLIP, SCRFDHeadShared, StyleConv,
                 ToRGB, StyleGAN2CSFT, ImageEncoderViT, VitAttention,
-                PromptEncoder, MaskDecoder, LayerNorm2d, LayerNorm)
+                PromptEncoder, MaskDecoder, LayerNorm2d, LayerNorm,
+                ArcMarginHead)
 
 
 def _flatten(tree, prefix=()):
@@ -207,6 +213,23 @@ def _flax_leaf(mod: nn.Module, attr: str):
     raise KeyError(f"{type(mod).__name__}.{attr} has no flax leaf")
 
 
+def flax_leaf_path(module: nn.Module, key: str):
+    """(collection, flax path, layout fn) of the port tensor `key` (a
+    name of `module.named_parameters()` or `named_buffers()`): the path
+    runs from the collection's root to the leaf's own name, and fn (or
+    None) turns the tensor's layout into the flax leaf's (numpy)."""
+    mod_name, _, attr = key.rpartition(".")
+    mod = module.get_submodule(mod_name)
+    leaf, fn = _flax_leaf(mod, attr)
+    collection = "params"
+    if isinstance(mod, (BatchNorm, SpectralConv)):
+        collection = _COLLECTION.get(leaf, "params")
+    path = mod_name.split(".") if mod_name else []
+    if type(mod) in _WRAPPER_OF and not _is_bare(module, mod_name):
+        path.append(_WRAPPER_OF[type(mod)])
+    return collection, path + [leaf], fn
+
+
 def flax_variables(module: nn.Module) -> dict:
     """The flax variables tree of `module`, the inverse of
     `load_flax_variables`: {"params": ..., and "batch_stats" /
@@ -214,24 +237,16 @@ def flax_variables(module: nn.Module) -> dict:
     tree: dict = {}
     tensors = list(module.named_parameters()) + list(module.named_buffers())
     for key, tensor in tensors:
-        mod_name, _, attr = key.rpartition(".")
-        mod = module.get_submodule(mod_name)
-        leaf, fn = _flax_leaf(mod, attr)
-        collection = "params"
-        if isinstance(mod, (BatchNorm, SpectralConv)):
-            collection = _COLLECTION.get(leaf, "params")
-        path = mod_name.split(".") if mod_name else []
-        if type(mod) in _WRAPPER_OF and not _is_bare(module, mod_name):
-            path.append(_WRAPPER_OF[type(mod)])
+        collection, path, fn = flax_leaf_path(module, key)
         # a copy: the tree must not alias the module's tensors
         arr = tensor.detach().to("cpu", torch.float32, copy=True).numpy()
         if fn is not None:
             arr = fn(arr)
         node = tree.setdefault(collection, {})
-        for p in path:
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        if leaf in node:
-            raise KeyError(f"flax leaf {collection}/{'/'.join(path + [leaf])} "
+        if path[-1] in node:
+            raise KeyError(f"flax leaf {collection}/{'/'.join(path)} "
                            f"written twice (again by {key})")
-        node[leaf] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.ascontiguousarray(arr)
     return tree

@@ -31,7 +31,9 @@ checkpoints (`--enhance_output face|full`) read through
 the LIPSPADE SR generator (10_net_G.pth) behind the train CLI's
 `--teacher_upsample --sr_path *.pth`. `convert_sam_state_dict` reads
 Segment Anything (sam_vit_{b,l,h}_*.pth) behind `cli/precompute_masks.py
---sam_path *.pth`.
+--sam_path *.pth`. `convert_fan_awl_state_dict` reads the
+AdaptiveWingLoss FAN (WFLW_4HG.pth) into `models/fan_awl.py`'s tree
+(`python -m ghost_tpu_torch.cli.convert --kind fan`).
 """
 
 from __future__ import annotations
@@ -495,6 +497,64 @@ def convert_rrdbnet_state_dict(
             blk[f"rdb{m}"] = rdb
         params[f"body_{i}"] = blk
     return {"params": params}
+
+
+def convert_fan_awl_state_dict(sd: Mapping[str, np.ndarray],
+                               num_modules: int = 4, depth: int = 4):
+    """AdaptiveWingLoss FAN checkpoints (WFLW_4HG.pth, the reference's
+    eye-landmark net, download_models.sh:20) -> the flax tree of
+    `models/fan_awl.FANAWL`. Official layout per the public
+    AdaptiveWingLoss core/models.py: CoordConv stems store their conv
+    under `.conv`; ConvBlocks as bn1/conv1..bn3/conv3 + downsample.{0,2};
+    hourglass pyramids as b1_L/b2_L/b2_plus_1/b3_L; per-stack heads
+    conv_last/bn_end/l/bl/al. A `module.` prefix (DataParallel) is
+    dropped."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    params: Dict = {}
+    stats: Dict = {}
+
+    def bn(name):
+        p, s = _bn(sd, name)
+        return {"BatchNorm_0": p}, {"BatchNorm_0": s}
+
+    def convblock(name):
+        p: Dict = {}
+        s: Dict = {}
+        for i in (1, 2, 3):
+            p[f"bn_{i}"], s[f"bn_{i}"] = bn(f"{name}.bn{i}")
+            p[f"conv_{i}"] = {"Conv_0": {"kernel": _conv(sd,
+                                                         f"{name}.conv{i}")}}
+        if f"{name}.downsample.0.weight" in sd:
+            p["bn_ds"], s["bn_ds"] = bn(f"{name}.downsample.0")
+            p["conv_ds"] = {"Conv_0": {"kernel": _conv(
+                sd, f"{name}.downsample.2")}}
+        return p, s
+
+    params["conv1"] = {"conv": _conv_wb(sd, "conv1.conv")}
+    params["bn1"], stats["bn1"] = bn("bn1")
+    for blk in ("conv2", "conv3", "conv4"):
+        params[blk], stats[blk] = convblock(blk)
+
+    for m in range(num_modules):
+        mp: Dict = {"coordconv": {"conv": _conv_wb(sd,
+                                                   f"m{m}.coordconv.conv")}}
+        ms: Dict = {}
+        names = [f"b1_{d}" for d in range(depth, 0, -1)]
+        names += [f"b2_{d}" for d in range(depth, 0, -1)]
+        names += ["b2_plus_1"]
+        names += [f"b3_{d}" for d in range(depth, 0, -1)]
+        for n in names:
+            mp[n], ms[n] = convblock(f"m{m}.{n}")
+        params[f"m{m}"], stats[f"m{m}"] = mp, ms
+        params[f"top_m_{m}"], stats[f"top_m_{m}"] = convblock(f"top_m_{m}")
+        params[f"conv_last{m}"] = _conv_wb(sd, f"conv_last{m}")
+        params[f"bn_end{m}"], stats[f"bn_end{m}"] = bn(f"bn_end{m}")
+        params[f"l{m}"] = _conv_wb(sd, f"l{m}")
+        if m < num_modules - 1:
+            params[f"bl{m}"] = _conv_wb(sd, f"bl{m}")
+            params[f"al{m}"] = _conv_wb(sd, f"al{m}")
+    return {"params": params, "batch_stats": stats}
 
 
 def convert_srvgg_state_dict(sd: Mapping[str, np.ndarray],

@@ -162,7 +162,9 @@ class BatchNorm(nn.Module):
 
     Eval mode (`train=False`): (x - mean) * (rsqrt(var + eps) * scale) +
     bias in f32 from the running statistics, cast to `dtype`.
-    affine=False is flax's use_scale=False, use_bias=False.
+    affine=False is flax's use_scale=False, use_bias=False;
+    use_scale=False alone keeps the bias (MXNet's fix_gamma BatchNorm,
+    `models/landmark_mxnet.py`).
 
     Train mode (`train=True`, flax's use_running_average=False, as
     `ghost_tpu/nn/layers.py:266` builds it): the batch statistics over
@@ -176,7 +178,7 @@ class BatchNorm(nn.Module):
     momentum = 0.9  # flax's: ra <- momentum * ra + (1 - momentum) * batch
 
     def __init__(self, features, eps=1e-5, dtype=torch.float32, device=None,
-                 affine=True, train=False):
+                 affine=True, train=False, use_scale=True):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
@@ -184,7 +186,9 @@ class BatchNorm(nn.Module):
         self.update_stats = True
         self.weight = self.bias = None
         if affine:
-            self.weight = nn.Parameter(torch.empty(features, device=device))
+            if use_scale:
+                self.weight = nn.Parameter(torch.empty(features,
+                                                       device=device))
             self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean",
                              torch.empty(features, device=device))
@@ -194,6 +198,7 @@ class BatchNorm(nn.Module):
     def reset_parameters(self, generator):
         if self.weight is not None:
             nn.init.ones_(self.weight)
+        if self.bias is not None:
             nn.init.zeros_(self.bias)
         nn.init.zeros_(self.running_mean)
         nn.init.ones_(self.running_var)
@@ -220,10 +225,11 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps)
-        if self.weight is None:
-            return ((xf - mean.view(shape)) * mul.view(shape)).to(self.dtype)
-        mul = mul * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
         return y.to(self.dtype)
 
 
@@ -432,7 +438,9 @@ def resize_matrix(method: str, in_size: int, out_size: int,
     """The (out, in) interpolation matrix, cast to the activation dtype
     like `ghost_tpu/nn/layers.py:394-398`, cached per device. Built
     outside inference mode, so a matrix first made by an inference call
-    can join a later autograd graph (a training step)."""
+    can join a later autograd graph (a training step). A traced call
+    (torch.export, torch.compile) takes `resize_matrix.__wrapped__`
+    instead (see `resize`)."""
     if method == "bilinear":
         mat = _linear_matrix(in_size, out_size, align_corners)
     elif method == "area":
@@ -475,9 +483,13 @@ def resize(x, size, method: str = "bilinear", align_corners: bool = False):
         in_size = x.shape[axis]
         if in_size == out_size:
             continue
-        mat = resize_matrix(method, in_size, out_size,
-                            align_corners and method == "bilinear",
-                            x.device, x.dtype)
+        # a traced call builds its own matrix: under torch.export's fake
+        # tensors the cache would keep a fake tensor for the eager calls
+        # after it; an eager call pays one flag read for the check
+        build = (resize_matrix.__wrapped__ if torch.compiler.is_compiling()
+                 else resize_matrix)
+        mat = build(method, in_size, out_size,
+                    align_corners and method == "bilinear", x.device, x.dtype)
         x = apply_matrix_axis(x, mat, axis)
     return x
 
