@@ -232,6 +232,22 @@ class CheckpointManager:
         return like
 
 
+def rank_checkpoint_manager(directory, group, keep: int = 5
+                            ) -> CheckpointManager:
+    """The manager of this rank's part of a data-parallel run's
+    checkpoints, `<directory>/rank<r>-of-<n>`: each rank writes its own
+    state, so a ZeRO-sharded optimizer (`parallel.zero.ZeroGhostAdam`)
+    saves its own slices and no rank gathers another's. The replicated
+    parts (G, D, the step, the EMA, the ratchets) are in every rank's
+    file. Restore each rank from its own directory into a group of the
+    same size; its next step equals the uninterrupted run's bit for bit."""
+    import torch.distributed as dist
+
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    return CheckpointManager(os.path.join(directory, f"rank{rank}-of-{size}"),
+                             keep=keep)
+
+
 def _to_cpu(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().clone()

@@ -117,3 +117,42 @@ class RRDBNet(nn.Module):
         feat = _lrelu(conv_nhwc(self.conv_up2, nearest_up2(feat)))
         feat = _lrelu(conv_nhwc(self.conv_hr, feat))
         return conv_nhwc(self.conv_last, feat)
+
+
+def rrdb_forward_pipelined(net: RRDBNet, x, *, mesh,
+                           num_microbatches: int | None = None,
+                           axis: str = "pipe", remat: bool = False,
+                           batch_axis: str | None = None):
+    """`net(x)` with the N-block trunk pipelined over `axis` of `mesh`
+    (`parallel.pp.pipeline_apply`'s GPipe schedule: stage s holds blocks
+    [s*ceil(N/S), ...), microbatches hop from stage to stage). The head
+    and tail convs run once, on x's device. x's batch must divide by
+    num_microbatches (default: the stage count). The same arithmetic as
+    `net(x)` on microbatches of the batch: equal to it up to the convs'
+    rounding at another batch size.
+
+    The blocks' weights reach each stage's device through
+    `pipeline_apply` on every call (no copy where they already lie, as
+    with logical shards on one card); gradients flow back to `net`."""
+    from torch.func import functional_call
+
+    from ghost_tpu_torch.parallel.pp import pipeline_apply
+
+    x = x.to(net.policy.compute_dtype)
+    if net.scale == 2:
+        x = pixel_unshuffle(x, 2)
+    elif net.scale == 1:
+        x = pixel_unshuffle(x, 4)
+    feat = conv_nhwc(net.conv_first, x)
+    template = net.body_0
+    blocks = [getattr(net, f"body_{i}").state_dict(keep_vars=True)
+              for i in range(net.num_block)]
+    body = pipeline_apply(
+        lambda p, h: functional_call(template, p, (h,)), blocks, feat,
+        mesh=mesh, axis=axis, num_microbatches=num_microbatches,
+        remat=remat, batch_axis=batch_axis)
+    feat = feat + conv_nhwc(net.conv_body, body)
+    feat = _lrelu(conv_nhwc(net.conv_up1, nearest_up2(feat)))
+    feat = _lrelu(conv_nhwc(net.conv_up2, nearest_up2(feat)))
+    feat = _lrelu(conv_nhwc(net.conv_hr, feat))
+    return conv_nhwc(net.conv_last, feat)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ghost_tpu_torch.ops.cuda.conv3x3 import conv3x3_fn
+from ghost_tpu_torch.parallel.collectives import data_parallel_group, global_sum
 
 
 def _pair(v):
@@ -173,7 +174,12 @@ class BatchNorm(nn.Module):
     normalise as above with them, and move the running statistics by
     ra <- 0.9 * ra + 0.1 * batch, the variance the biased batch variance
     (torch's BatchNorm takes E[(x - E[x])^2] and updates with the
-    unbiased one). The update is skipped inside `frozen_batch_stats`."""
+    unbiased one). The update is skipped inside `frozen_batch_stats`.
+
+    Inside `parallel.collectives.data_parallel(group)` the train-mode
+    statistics are the group's (apex SyncBatchNorm): sum x, sum x^2 and
+    the count all-reduced, with autograd, before the same fast variance;
+    each rank's running statistics then move identically."""
 
     momentum = 0.9  # flax's: ra <- momentum * ra + (1 - momentum) * batch
 
@@ -205,9 +211,20 @@ class BatchNorm(nn.Module):
 
     def _batch_stats(self, xf):
         dims = (0,) + tuple(range(2, xf.ndim))
-        inv_n = 1.0 / (xf.numel() // xf.shape[1])
-        mean = xf.sum(dim=dims) * inv_n
-        mean2 = torch.square(xf).sum(dim=dims) * inv_n
+        count = xf.numel() // xf.shape[1]
+        if data_parallel_group() is None:
+            inv_n = 1.0 / count
+            mean = xf.sum(dim=dims) * inv_n
+            mean2 = torch.square(xf).sum(dim=dims) * inv_n
+        else:
+            # SyncBatchNorm: sum x, sum x^2 and the count over the group
+            # in one differentiable all-reduce
+            s1 = xf.sum(dim=dims)
+            sums = global_sum(torch.stack(
+                [s1, torch.square(xf).sum(dim=dims),
+                 torch.full_like(s1.detach(), count)]))
+            inv_n = 1.0 / sums[2]
+            mean, mean2 = sums[0] * inv_n, sums[1] * inv_n
         var = torch.clamp(mean2 - torch.square(mean), min=0.0)
         if self.update_stats:
             m = self.momentum

@@ -7,10 +7,8 @@ Names follow the flax modules so the weight bridge maps leaf for leaf:
 `ln_scale` and `ln_bias` in `MultiheadAttention`; `v`, `g` and `bias` in
 `WeightNormDense` (v in the flax (in, out) layout). flax infers input
 widths at the first call; these modules take them as arguments.
-
-Not ported here: `MultiheadAttention.seq_mesh` (ring attention across
-devices, `ghost_tpu/parallel/sp.py`), which comes with the parallel
-layer.
+`MultiheadAttention(seq_mesh=...)` routes its core through ring attention
+(`parallel/sp.py`), as the JAX module does.
 """
 
 from __future__ import annotations
@@ -63,13 +61,21 @@ class MultiheadAttention(nn.Module):
     `flash_attention` (K2 on the card) for self-attention with
     s == sk and s % 128 == 0 when `use_kernel` is set, and the plain
     core for every other shape, as the JAX module sends those to its
-    reference."""
+    reference.
+
+    `seq_mesh`, a `core.mesh.Mesh` with a "seq" axis, sends the core
+    through `parallel.sp.ring_attention` instead (the sequence split over
+    the mesh's devices, K/V rotating between them), bypassing the kernel
+    as JAX bypasses its Pallas core; the params are unchanged and the
+    output matches the local core."""
 
     def __init__(self, in_features: int, num_heads: int, head_dim: int,
                  causal: bool = False, norm_add: bool = False,
                  use_kernel: bool = True, kv_features: int | None = None,
-                 policy: Policy = DEFAULT_POLICY, device=None):
+                 policy: Policy = DEFAULT_POLICY, device=None,
+                 seq_mesh=None):
         super().__init__()
+        self.seq_mesh = seq_mesh
         self.num_heads, self.head_dim = num_heads, head_dim
         self.causal, self.norm_add, self.use_kernel = causal, norm_add, use_kernel
         self.policy = policy
@@ -103,12 +109,21 @@ class MultiheadAttention(nn.Module):
         def split(t, sl):  # (B, S, H*D) -> (B, H, S, D) view, no copy
             return t.reshape(b, sl, self.num_heads, self.head_dim).transpose(1, 2)
 
-        qh, kh, vh = split(q, s), split(k, sk), split(v, sk)
-        if self.use_kernel and s == sk and s % 128 == 0:
-            o = flash_attention(qh, kh, vh, self.causal)
+        if self.seq_mesh is not None:
+            from ghost_tpu_torch.parallel.sp import ring_attention
+
+            heads = (self.num_heads, self.head_dim)
+            o = ring_attention(q.reshape(b, s, *heads),
+                               k.reshape(b, sk, *heads),
+                               v.reshape(b, sk, *heads), mesh=self.seq_mesh,
+                               causal=self.causal).reshape(b, s, -1)
         else:
-            o = flash_attention_plain(qh, kh, vh, self.causal)
-        o = o.transpose(1, 2).reshape(b, s, self.num_heads * self.head_dim)
+            qh, kh, vh = split(q, s), split(k, sk), split(v, sk)
+            if self.use_kernel and s == sk and s % 128 == 0:
+                o = flash_attention(qh, kh, vh, self.causal)
+            else:
+                o = flash_attention_plain(qh, kh, vh, self.causal)
+            o = o.transpose(1, 2).reshape(b, s, self.num_heads * self.head_dim)
         out = self.out_proj(o)
         if self.norm_add:
             out = out + residual.to(out.dtype)

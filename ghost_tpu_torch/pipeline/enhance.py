@@ -11,7 +11,8 @@ One chunk of uint8 frames stays on the device:
 
 The background runs tiled (RealESRGANer `tile`/`tile_pad` parity): x4 on
 a whole 1080p chunk would need tens of GB of activations. Tiles run one
-after another with halos clamped to the image; each tile's x4 output is
+after another with halos clamped to the image (with a mesh, each shard
+runs its contiguous run of them on its device); each tile's x4 output is
 area-resized back to the tile's size before the stitch, which equals
 resizing the stitched x4 canvas (the 4x4 box average is tile-aligned).
 
@@ -27,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ghost_tpu_torch.core.mesh import (replicate, replicate_module,
+                                       to_device)
 from ghost_tpu_torch.models.scrfd import decode_detections, preprocess_frames
 from ghost_tpu_torch.nn.layers import resize
 from ghost_tpu_torch.ops.umeyama import umeyama_similarity
@@ -93,32 +96,78 @@ def _one_tile(mod, frames01, start, th, tw, pad, scale, downscale):
 
 
 def _tiled_rect(mod, frames01, th: int, tw: int, pad: int, scale: int = 4,
-                downscale: bool = False):
+                downscale: bool = False, mesh=None, mesh_axis: str = "data"):
     """`mod` over (B,H,W,C) in th x tw tiles with a `pad` halo, stitched.
 
     Halos clamp to the image bounds like RealESRGANer.tile_process, so
     frame borders see the model's own conv padding as the full-frame
     pass would; only interior seams beyond the halo's receptive-field
-    reach differ from it."""
+    reach differ from it.
+
+    `mesh` shards the tile axis (row-major tile order) over `mesh_axis`:
+    shard i runs its contiguous run of tiles on its device, with the
+    frames and `mod` there (`mod` may be {device: replica}, made once by
+    `core.mesh.replicate_module`; a module is used on every shard's
+    device), and the tiles come back to the frames' device for the
+    stitch, which equals the unsharded one."""
     b, h, w, c = frames01.shape
     if h % th or w % tw:
         raise ValueError(f"tiles {th}x{tw} do not divide {h}x{w}")
     if th + 2 * pad > h or tw + 2 * pad > w:
         raise ValueError(f"tile {th}x{tw} with halo {pad} exceeds {h}x{w}")
-    rows = [torch.cat([_one_tile(mod, frames01, (y, x), th, tw, pad, scale,
-                                 downscale)
-                       for x in range(0, w, tw)], dim=2)
-            for y in range(0, h, th)]
+    starts = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+    if mesh is None:
+        tiles = [_one_tile(mod, frames01, st, th, tw, pad, scale, downscale)
+                 for st in starts]
+    else:
+        devices = mesh.axis_devices(mesh_axis)[0]
+        if len(starts) % len(devices):
+            raise ValueError(
+                f"{len(starts)} tiles not divisible by mesh "
+                f"'{mesh_axis}' size {len(devices)}")
+        per = len(starts) // len(devices)
+        frames_on = replicate(frames01, devices)
+        tiles = []
+        for i, d in enumerate(devices):
+            mod_d = mod[d] if isinstance(mod, dict) else mod
+            tiles += [to_device(_one_tile(mod_d, frames_on[d], st, th, tw,
+                                          pad, scale, downscale),
+                                frames01.device)
+                      for st in starts[i * per:(i + 1) * per]]
+    nx = w // tw
+    rows = [torch.cat(tiles[i:i + nx], dim=2)
+            for i in range(0, len(tiles), nx)]
     return torch.cat(rows, dim=1)
 
 
 def upscale_tiled(mod, frames01, scale: int = 4,
-                  tile: int | tuple[int, int] = 256, tile_pad: int = 10):
+                  tile: int | tuple[int, int] = 256, tile_pad: int = 10,
+                  mesh=None, mesh_axis: str = "data"):
     """RealESRGANer.tile_process parity: split (B,H,W,C) into tiles with
     a `tile_pad` halo, upsample each through `mod` and stitch the
-    x`scale` outputs. H and W must divide by the tile dims."""
+    x`scale` outputs. H and W must divide by the tile dims. `mesh` shards
+    the tiles over `mesh_axis` (see `_tiled_rect`)."""
     th, tw = (tile, tile) if isinstance(tile, int) else tile
-    return _tiled_rect(mod, frames01, th, tw, tile_pad, scale=scale)
+    return _tiled_rect(mod, frames01, th, tw, tile_pad, scale=scale,
+                       mesh=mesh, mesh_axis=mesh_axis)
+
+
+def _to_host(out) -> np.ndarray:
+    """The enhancer's output in one numpy buffer: a tensor (what
+    `FaceEnhancer` makes: `_tiled_rect` stitches the shards' tiles on the
+    frames' device), or the per-shard pieces of one as (index, tensor)
+    pairs, each index a tuple of slices into the whole. Every shard of a
+    mesh lives in this process, so JAX's refusal of an output sharded
+    across hosts has nothing to refuse here."""
+    if isinstance(out, torch.Tensor):
+        return out.cpu().numpy()
+    pieces = [(idx, t.cpu().numpy()) for idx, t in out]
+    shape = tuple(max(sl.stop for sl in col) for col in
+                  zip(*(idx for idx, _ in pieces)))
+    buf = np.empty(shape, pieces[0][1].dtype)
+    for idx, piece in pieces:
+        buf[idx] = piece
+    return buf
 
 
 class FaceEnhancer:
@@ -127,13 +176,20 @@ class FaceEnhancer:
     det: the pipeline's detector module (`SCRFD`, `SCRFDOnnx` or
     `SCRFDV1e`: letterboxed canvas in, SCRFD head rows out); gfpgan: a
     `GFPGANClean`; bg: None, an `RRDBNet` or an `SRVGGNetCompact` (x4,
-    NHWC). Each owns its weights, on one device."""
+    NHWC). Each owns its weights, on one device.
+
+    bg_mesh: a `core.mesh.Mesh` whose "data" axis shards the background
+    tiles (`_tiled_rect`); the background model is copied once to each
+    of its devices other than its own, here."""
 
     def __init__(self, det, gfpgan, bg=None, det_size: int = 640,
                  det_thresh: float = 0.5, max_faces: int = 4,
                  crop_size: int = 512, bg_tile: tuple[int, int] = (270, 240),
-                 bg_tile_pad: int = 10):
+                 bg_tile_pad: int = 10, bg_mesh=None):
         self.det_mod, self.gfp_mod, self.bg_mod = det, gfpgan, bg
+        self.bg_mesh = bg_mesh
+        self._bg_on = (replicate_module(bg, bg_mesh.axis_devices("data")[0])
+                       if bg is not None and bg_mesh is not None else bg)
         self.det_size = det_size
         self.det_thresh = det_thresh
         self.max_faces = max_faces
@@ -157,7 +213,8 @@ class FaceEnhancer:
         # the halo must fit inside the frame (halos clamp to the image);
         # a frame of one tile on an axis gets none
         pad = min(self.bg_tile_pad, (h - th) // 2, (w - tw) // 2)
-        up = _tiled_rect(self.bg_mod, x01, th, tw, pad, downscale=True)
+        up = _tiled_rect(self._bg_on, x01, th, tw, pad, downscale=True,
+                         mesh=self.bg_mesh)
         return torch.clamp(up.float(), 0.0, 1.0) * 255.0
 
     def _enhance(self, frames_u8):
@@ -198,4 +255,4 @@ class FaceEnhancer:
     def enhance(self, frames_rgb_u8: np.ndarray) -> np.ndarray:
         """frames (B,H,W,3) RGB uint8 -> enhanced frames, same shape."""
         frames = torch.from_numpy(np.ascontiguousarray(frames_rgb_u8))
-        return self._enhance(frames.to(self.device)).cpu().numpy()
+        return _to_host(self._enhance(frames.to(self.device)))

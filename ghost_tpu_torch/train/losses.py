@@ -5,6 +5,13 @@ eye-heatmap L2), the distillation fork's (teacher residual, multi-round
 stability, round trip) and the auxiliary consistency losses. Tensors
 are NHWC; the f32 casts sit where the JAX functions cast, so a bf16
 model's losses reduce as JAX reduces them.
+
+Every reduction over the batch goes through `global_sum` / `global_mean`
+(`parallel/collectives.py`): the local sum and mean, except inside
+`data_parallel(group)`, where they are the group's, with autograd. The
+data-parallel step's losses are then the global batch's on every rank:
+the masked ratios of the hinge and reconstruction terms divide global
+sums, and the teacher term's Frobenius norm is the whole batch's.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ghost_tpu_torch.parallel.collectives import global_mean, global_sum
+
 
 # --------------------------------------------------------------- adversarial
 def hinge_g_loss(d_outputs, diff_person):
@@ -24,21 +33,22 @@ def hinge_g_loss(d_outputs, diff_person):
     for di in d_outputs:
         total = total + torch.mean(torch.clamp(1.0 - di[-1], min=0.0),
                                    dim=(1, 2, 3))
-    return torch.sum(total * diff_person) / (torch.sum(diff_person) + 1e-4)
+    return global_sum(torch.sum(total * diff_person)) / (
+        global_sum(torch.sum(diff_person)) + 1e-4)
 
 
 def hinge_d_loss(d_fake, d_real, diff_person):
     """0.5 * (real hinge + fake hinge), each a diff-person weighted mean
     summed over scales."""
-    den = torch.sum(diff_person) + 1e-4
+    den = global_sum(torch.sum(diff_person)) + 1e-4
     loss_fake = 0.0
     for di in d_fake:
         per = torch.mean(torch.clamp(di[-1] + 1.0, min=0.0), dim=(1, 2, 3))
-        loss_fake = loss_fake + torch.sum(per * diff_person) / den
+        loss_fake = loss_fake + global_sum(torch.sum(per * diff_person)) / den
     loss_real = 0.0
     for di in d_real:
         per = torch.mean(torch.clamp(1.0 - di[-1], min=0.0), dim=(1, 2, 3))
-        loss_real = loss_real + torch.sum(per * diff_person) / den
+        loss_real = loss_real + global_sum(torch.sum(per * diff_person)) / den
     return 0.5 * (loss_real + loss_fake)
 
 
@@ -48,7 +58,7 @@ def id_cosine_loss(embed_src, embed_out):
     num = torch.sum(embed_src * embed_out, dim=-1)
     den = (torch.linalg.vector_norm(embed_src, dim=-1)
            * torch.linalg.vector_norm(embed_out, dim=-1))
-    return torch.mean(1.0 - num / torch.clamp(den, min=1e-8))
+    return global_mean(1.0 - num / torch.clamp(den, min=1e-8))
 
 
 # ----------------------------------------------------------------- attribute
@@ -58,7 +68,7 @@ def attr_loss(xt_attrs: Sequence, y_attrs: Sequence):
     for xa, ya in zip(xt_attrs, y_attrs):
         per_sample = torch.mean(torch.square(xa.float() - ya.float()),
                                 dim=(1, 2, 3))
-        total = total + torch.mean(per_sample)
+        total = total + global_mean(per_sample)
     return total / 2.0
 
 
@@ -67,31 +77,33 @@ def reconstruction_loss(y, xt, same_person):
     """0.5 * MSE per sample, averaged over the same-person pairs."""
     per = 0.5 * torch.mean(torch.square(y.float() - xt.float()),
                            dim=(1, 2, 3))
-    return torch.sum(per * same_person) / (torch.sum(same_person) + 1e-6)
+    return global_sum(torch.sum(per * same_person)) / (
+        global_sum(torch.sum(same_person)) + 1e-6)
 
 
 # ------------------------------------------------------------------- eyes
 def eye_heatmap_loss(xt_left, xt_right, y_left, y_right):
     """L2 on the two pupil heatmaps."""
-    return (torch.mean(torch.square(xt_left - y_left))
-            + torch.mean(torch.square(xt_right - y_right)))
+    return (global_mean(torch.square(xt_left - y_left))
+            + global_mean(torch.square(xt_right - y_right)))
 
 
 # ----------------------------------------------------- distillation (fork)
 def teacher_residual_loss(xt, teacher_y, y):
     """||(Xt - tY) - (Xt - Y)||_2: the Frobenius norm, not a mean."""
     diff = (xt - teacher_y) - (xt - y)
-    return torch.sqrt(torch.sum(torch.square(diff.float())) + 1e-12)
+    return torch.sqrt(global_sum(torch.sum(torch.square(diff.float())))
+                      + 1e-12)
 
 
 def multi_round_loss(y2, y):
     """MSE(G(G(x)), G(x)) stability."""
-    return torch.mean(torch.square(y2.float() - y.float()))
+    return global_mean(torch.square(y2.float() - y.float()))
 
 
 def round_trip_loss(x_round_trip, xs):
     """MSE(G(Y, Z_Xt), Xt)."""
-    return torch.mean(torch.square(x_round_trip.float() - xs.float()))
+    return global_mean(torch.square(x_round_trip.float() - xs.float()))
 
 
 # ------------------------------------------------- aux consistency (helpers)

@@ -31,6 +31,7 @@ from torch import nn
 
 from ghost_tpu_torch.core.precision import disable_tf32
 from ghost_tpu_torch.nn.layers import frozen_batch_stats, resize
+from ghost_tpu_torch.parallel.collectives import average_gradients
 from ghost_tpu_torch.train import losses as L
 from ghost_tpu_torch.train.optimizers import GhostAdam, step_lr
 
@@ -153,9 +154,10 @@ def _embed112(arc_apply, x_pm1):
 def _apply_grads(loss, params, opt):
     """One optimizer update from d loss / d params; a parameter the loss
     does not reach takes a zero gradient (decay and moments still move,
-    as optax updates every leaf)."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                materialize_grads=True)
+    as optax updates every leaf). Inside `parallel.collectives
+    .data_parallel` the gradients are first averaged over the group."""
+    grads = average_gradients(torch.autograd.grad(
+        loss, params, allow_unused=True, materialize_grads=True))
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
